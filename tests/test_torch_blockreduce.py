@@ -1,0 +1,105 @@
+"""K2's plain version (``reduce_blocks_plain``) equals the JAX package's.
+
+Against the TPU kernel ``reduce_pallas`` in interpret mode, its output folded
+to block form as the JAX engine folds it (``affine_plane.py:817-835``), and
+against the JAX engine's unfused reduction ``_reduce_pred`` per CU.  Both
+modes, refine on and off, and the one-bin broadcast of the zero-motion
+iteration.  Exact equality on the valid slots of in-frame CUs (outputs are
+unspecified elsewhere) and on every per-CU output.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vvc_affine_tpu.models import affine_plane as jap
+from vvc_affine_tpu.ops import blockreduce as jbr
+from vvc_affine_tpu_torch.models import affine_plane as tap
+from vvc_affine_tpu_torch.ops import blockreduce as tbr
+
+# One intra-op thread: the suite runs several pytest workers at once, and
+# torch's default pool (a thread per core in every worker) oversubscribes
+# the CPU and slows these many small ops many times over.
+torch.set_num_threads(1)
+
+FW, FH = 200, 136          # 2x2 CTUs, the right and bottom ones partial
+
+
+def _valid_slots(jt):
+    """bool [nCtu, nBins, 32, 32]: slots of in-frame CUs (JAX tables)."""
+    out = np.zeros((jt.n_ctus, jt.n_bins, 32, 32), bool)
+    for ci, cp_tab in enumerate(jt.cls):
+        s = jt.strides[ci]
+        w = jnp.asarray(jt.within[:, s:s + cp_tab.num_cus].astype(np.int32))
+        cover = np.asarray(jap.P.spread_cu_to_slots(jnp, w, cp_tab)) > 0
+        out[:, int(jt.bin_of[ci])] |= cover & cp_tab.slot_valid
+    return out
+
+
+def _inputs(n_ctu, pred_bins, seed):
+    rng = np.random.default_rng(seed)
+    pred = rng.integers(0, 1024, size=(n_ctu, pred_bins, 128, 128)).astype(
+        np.int16)
+    orig = rng.integers(0, 1024, size=(n_ctu, 128, 128)).astype(np.int32)
+    return pred, orig
+
+
+def _cases():
+    return [(m, b, r) for m in ("full", "half") for b, r in
+            (("all", True), ("all", False), ("one", True))]
+
+
+@pytest.mark.parametrize("mode,bins,refine", _cases())
+def test_reduce_blocks_matches_pallas_interpret(mode, bins, refine):
+    jspec = jap.PlaneSpec(mode, 2, FW, FH)
+    jt = jap.build_tables(jspec)
+    pred, orig = _inputs(jt.n_ctus, jt.n_bins if bins == "all" else 1,
+                         seed=len(mode) + 2 * refine)
+    satd_l, moms_l = jbr.reduce_pallas(
+        jnp.asarray(pred), jnp.asarray(orig.astype(np.int16)),
+        jnp.asarray(jt.border_packed), jnp.asarray(jt.slab_active), refine,
+        interpret=True)
+    satd_want = np.asarray(satd_l)[..., 3::4]
+    satd, moms = tbr.reduce_blocks_plain(
+        torch.from_numpy(pred), torch.from_numpy(orig),
+        torch.from_numpy(jt.border_packed), refine)
+    valid = _valid_slots(jt)
+    assert satd.dtype == torch.int32 and valid.any()
+    np.testing.assert_array_equal(np.where(valid, satd.numpy(), 0),
+                                  np.where(valid, satd_want, 0))
+    if not refine:
+        assert moms is None and moms_l is None
+        return
+    m = np.asarray(moms_l)
+    moms_want = m[..., 0::4] + m[..., 1::4] + m[..., 2::4] + m[..., 3::4]
+    assert moms.dtype == torch.int32
+    np.testing.assert_array_equal(
+        np.where(valid[:, :, None], moms.numpy(), 0),
+        np.where(valid[:, :, None], moms_want, 0))
+
+
+@pytest.mark.parametrize("mode,bins,refine", _cases())
+def test_reduce_pred_matches_jax_unfused(mode, bins, refine):
+    """Per-CU SATD and normal equations through the port's engine tail
+    (``reduce_blocks`` + slot->CU folds + ``_assemble_equations``)."""
+    n_cp = 3 if bins == "all" else 2
+    jspec = jap.PlaneSpec(mode, n_cp, FW, FH, use_pallas=False)
+    jt = jap.build_tables(jspec)
+    pred, orig = _inputs(jt.n_ctus, jt.n_bins if bins == "all" else 1,
+                         seed=10 + len(mode) + 2 * refine)
+    want = jap._reduce_pred(
+        jspec, jt, jnp.asarray(pred),
+        jap._orig_forms(jspec, jnp.asarray(orig)), jnp.asarray(jt.within),
+        refine)
+    tspec = tap.PlaneSpec(mode, n_cp, FW, FH)
+    got = tap._reduce_pred(tspec, tap.build_tables(tspec, "cpu"),
+                           torch.from_numpy(pred), torch.from_numpy(orig),
+                           refine)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

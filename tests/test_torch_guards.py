@@ -1,0 +1,100 @@
+"""The port stands alone and never runs on the CPU unless asked to.
+
+* No module of ``vvc_affine_tpu_torch`` and not ``chip_smoke.py`` imports
+  JAX or anything of the JAX package (an AST scan of every import).
+* With no CUDA device, every entry point called without ``device="cpu"``
+  raises instead of carrying on on the CPU.
+* The default CUDA device carries its index, so it equals the device of
+  the tensors made on it.
+* Without ``nvcc`` the kernel build raises; nothing falls back.
+"""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from vvc_affine_tpu_torch import cli, kernels, resolve_device
+from vvc_affine_tpu_torch.models import affine_plane as tap
+from vvc_affine_tpu_torch.models import pipeline
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    root = os.path.join(_REPO, "vvc_affine_tpu_torch")
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(root):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "vvc_affine_tpu"), \
+                f"{os.path.relpath(path, _REPO)} imports {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_without_a_card(no_cuda, tmp_path):
+    s2 = tap.PlaneSpec("full", 2, 128, 128)
+    s3 = tap.PlaneSpec("full", 3, 128, 128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tap.build_pair_stage(s2, s3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tap.build_stage(s2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tap.zero_cpmvs(s2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.AffineMEPipeline(pipeline.PipelineConfig(128, 128, 32))
+    args = ["-f", "1", "-s", "128x128", "-q", "32",
+            "-o", str(tmp_path / "o.csv"), "-r", str(tmp_path / "r.csv")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args + ["--DeviceIndex", "1"])
+    # asking for the CPU is the one way to run there
+    assert tap.zero_cpmvs(s2, "cpu").device.type == "cpu"
+
+
+def test_default_cuda_device_carries_its_index(monkeypatch):
+    # tensors made on ``cuda`` report ``cuda:<n>``, and torch compares
+    # devices with their index, so an entry point's default device must
+    # carry one or its own input checks refuse the inputs it made
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    assert resolve_device() == torch.device("cuda", 2)
+    assert resolve_device("cuda") == torch.device("cuda", 2)
+    assert resolve_device(torch.device("cuda")).index == 2
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported"):
+        resolve_device("meta")
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()

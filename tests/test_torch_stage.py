@@ -1,0 +1,140 @@
+"""The port's 2CP->3CP pair stage equals the JAX engine's, bit for bit.
+
+For each alignment mode, ``build_pair_stage`` of the port (plain versions on
+the CPU) against the JAX ``build_pair_stage`` on its exact XLA path, at a
+2-CTU frame with affine-true content and at the partial-CTU frame 200x136
+(the right and bottom CTUs hold out-of-frame CUs, which take the masked
+path).  The JAX stages compile in fresh child processes with the raised
+stack rlimit (XLA:CPU segfaults compiling stage graphs late in long
+processes, see tests/test_plane_engine.py); the four children run at once.
+Also: the port's ``build_tables`` equals the JAX one field by field.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tests._child import _raise_stack
+from vvc_affine_tpu.models import affine_plane as jap
+from vvc_affine_tpu_torch import testing
+from vvc_affine_tpu_torch.models import affine_plane as tap
+
+# One intra-op thread: the suite runs several pytest workers at once, and
+# torch's default pool (a thread per core in every worker) oversubscribes
+# the CPU and slows these many small ops many times over.
+torch.set_num_threads(1)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIZES = ((256, 128), (200, 136))
+CASES = [(m, w, h) for m in ("full", "half") for w, h in SIZES]
+LAM = 57.54
+
+_CHILD_SRC = """
+import sys
+import numpy as np
+import jax.numpy as jnp
+from vvc_affine_tpu.models import affine_plane as ap
+
+mode, fw, fh, inp, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \\
+    sys.argv[4], sys.argv[5]
+d = np.load(inp)
+s2 = ap.PlaneSpec(mode, 2, fw, fh, use_pallas=False)
+s3 = ap.PlaneSpec(mode, 3, fw, fh, use_pallas=False)
+res = ap.build_pair_stage(s2, s3)(
+    jnp.asarray(d["ref"]), jnp.asarray(d["orig"]), jnp.float32(d["lam"]),
+    ap.zero_cpmvs(s2))
+np.savez(out, *[np.asarray(r) for r in res])
+"""
+
+
+def _frames(fw, fh):
+    """Affine-true content at the 2-CTU size, iid noise at the partial one."""
+    if (fw, fh) == SIZES[0]:
+        orig, recon = testing.affine_gop(fw, fh, 1, seed=11)
+        return recon[0].astype(np.int32).ravel(), orig[0].astype(
+            np.int32).ravel()
+    rng = np.random.default_rng(fw * fh)
+    return (rng.integers(0, 1024, fh * fw).astype(np.int32),
+            rng.integers(0, 1024, fh * fw).astype(np.int32))
+
+
+@pytest.fixture(scope="module")
+def jax_pairs(tmp_path_factory):
+    """JAX pair-stage outputs for every case, from concurrent children."""
+    tmp = tmp_path_factory.mktemp("jax_pairs")
+    env = dict(os.environ, VVC_AFFINE_TPU_PLATFORM="cpu")
+    procs = {}
+    for mode, fw, fh in CASES:
+        ref, orig = _frames(fw, fh)
+        inp = str(tmp / f"in_{mode}_{fw}.npz")
+        out = str(tmp / f"out_{mode}_{fw}.npz")
+        np.savez(inp, ref=ref, orig=orig, lam=np.float32(LAM))
+        procs[(mode, fw, fh)] = (out, subprocess.Popen(
+            [sys.executable, "-c", _CHILD_SRC, mode, str(fw), str(fh), inp,
+             out], env=env, cwd=_REPO, preexec_fn=_raise_stack,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results = {}
+    for key, (out, p) in procs.items():
+        stdout, stderr = p.communicate(timeout=1200)
+        assert p.returncode == 0, (key, stdout[-800:], stderr[-2000:])
+        with np.load(out) as z:
+            results[key] = [z[f"arr_{i}"] for i in range(4)]
+    return results
+
+
+@pytest.mark.parametrize("mode,fw,fh", CASES)
+def test_pair_stage_matches_jax(jax_pairs, mode, fw, fh):
+    want = jax_pairs[(mode, fw, fh)]
+    s2 = tap.PlaneSpec(mode, 2, fw, fh)
+    s3 = tap.PlaneSpec(mode, 3, fw, fh)
+    ref, orig = _frames(fw, fh)
+    z = tap.zero_cpmvs(s2, "cpu")
+    args = tap.stage_inputs_from_numpy(ref, orig, LAM, z, "cpu")
+    assert args[2].dtype == torch.float32 and args[2].dim() == 0
+    got = tap.build_pair_stage(s2, s3, device="cpu")(*args)
+    for g, w, dtype in zip(got, want, (torch.int64, torch.int32) * 2):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    # the per-pred dispatch (two separate stages) gives the same outputs
+    c2, p2 = tap.build_stage(s2, device="cpu")(*args)
+    c3, p3 = tap.build_stage(s3, device="cpu")(*args[:3], p2)
+    for g, w in zip((c2, p2, c3, p3), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode,fw,fh", CASES)
+def test_build_tables_match_jax(mode, fw, fh):
+    jt = jap.build_tables(jap.PlaneSpec(mode, 2, fw, fh))
+    tt = tap.build_tables(tap.PlaneSpec(mode, 2, fw, fh), "cpu")
+    assert tap.tables_from_numpy(jt._asdict(), "cpu")._asdict().keys() \
+        == tt._asdict().keys()
+    shared = [f for f in tap.PlaneTables._fields if f in jt._fields]
+    assert len(shared) == len(tap.PlaneTables._fields) - 1   # all but cls_t
+    for f in shared:
+        a, b = getattr(tt, f), getattr(jt, f)
+        if isinstance(a, torch.Tensor):
+            assert a.numpy().dtype == b.dtype, f
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=f)
+        elif f == "cls":
+            for x, y in zip(a, b, strict=True):
+                assert [vars(g) for g in x.subgrids] == \
+                    [vars(g) for g in y.subgrids]
+                for k in ("class_id", "width", "height", "num_cus",
+                          "slot_valid", "slot_cx", "slot_cy", "row_top",
+                          "row_bot", "col_left", "col_right"):
+                    np.testing.assert_array_equal(getattr(x, k),
+                                                  getattr(y, k))
+        elif f == "bin_of":
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b, f
+    # the JAX tables rebuilt on a device are the port's own
+    t2 = tap.tables_from_numpy(jt._asdict(), "cpu")
+    for f in shared:
+        a, b = getattr(tt, f), getattr(t2, f)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b) and a.dtype == b.dtype, f

@@ -1,0 +1,43 @@
+"""vvc_affine_tpu_torch — the VVC Affine Motion Estimation engine in PyTorch.
+
+The same stage contract, frame loop, CLI flags and decision-log bytes as the
+JAX package ``vvc_affine_tpu``, run eagerly in PyTorch on an NVIDIA card.
+The two kernels of the dense plane engine — the warp (motion-compensated
+prediction of every 4x4 block of a CTU plane) and the block reduction (SATD,
+Sobel gradients and the five normal-equation moments) — are hand-written
+CUDA (``csrc/``), built with ``nvcc`` at first use (``kernels.py``).  Every
+kernel wrapper keeps a plain PyTorch version of the same function, which it
+runs only for tensors on the CPU; the tests hold the port against the JAX
+package on the CPU through those plain versions.
+
+Entry points (``models.affine_plane.build_stage``/``build_pair_stage``,
+``models.pipeline.AffineMEPipeline`` and ``cli.main``) run on ``cuda``
+unless the caller passes ``device="cpu"``; with no card they raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless one is given.
+
+    A CUDA device always comes back with its index (``cuda`` becomes
+    ``cuda:<current device>``), so it compares equal to the device of every
+    tensor made on it.  Raises when the resolved device is a CUDA device and
+    no card is present: the port never carries on silently on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

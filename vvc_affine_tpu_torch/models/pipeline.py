@@ -1,0 +1,222 @@
+"""Frame-level encoding pipeline: the engine's host orchestration.
+
+Behavioural spec: the frame loop of main.cpp:578-1010 — per frame:
+POC/numRefs/lambda selection, reference-buffer update, then for each refIdx
+the four stages FULL_2CP -> FULL_3CP (consuming the 2CP CPMVs) ->
+HALF_2CP -> HALF_3CP, with results handed to the decision-log writer.
+
+Frames live on the device as tensors handed out by POC label (no
+device-to-device slot copies); the next original frame is staged while the
+current one is encoded (cf. main.cpp:711-715).  With timing, each pair (or
+stage) dispatch is bracketed by CUDA events on the card — the analogue of
+the reference's per-kernel event profiling (main.cpp:862-866) — and its
+end event is waited on before the time is read.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vvc_affine_tpu_torch import constants as C
+from vvc_affine_tpu_torch import resolve_device
+from vvc_affine_tpu_torch.models import affine_plane
+from vvc_affine_tpu_torch.runtime.refmanager import ReferenceBuffer
+
+PRED_FULL_2CP, PRED_FULL_3CP, PRED_HALF_2CP, PRED_HALF_3CP = range(4)
+
+
+@dataclass
+class PipelineConfig:
+    frame_w: int
+    frame_h: int
+    qp: int
+    extra_iters: int = 0
+    test_full: bool = True
+    test_half: bool = True
+    # None -> "cuda"; pass "cpu" to run the plain versions on the CPU
+    device: Optional[object] = None
+    # run each mode's 2CP->3CP chain as one pair dispatch (timed per pair);
+    # False times each pred type on its own (the reference's
+    # kernelExecutionTime[4] split, main_aux_functions.h:1416-1446)
+    fused: bool = True
+
+
+@dataclass
+class StageResult:
+    poc: int
+    ref_idx: int
+    pred: int
+    costs: torch.Tensor   # int64 [nCtu, nCU]
+    cpmvs: torch.Tensor   # int32 [nCtu, nCU, 3, 2]
+
+
+class _Timer:
+    """Times one dispatch: CUDA events on the card, host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+
+    def __enter__(self):
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record(torch.cuda.current_stream(self.device))
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.end.record(torch.cuda.current_stream(self.device))
+            self.end.synchronize()
+            self.seconds = self.start.elapsed_time(self.end) / 1e3
+        else:
+            self.seconds = time.perf_counter() - self.t0
+        return False
+
+
+class AffineMEPipeline:
+    """Runs Affine ME over a GOP of frames."""
+
+    PRED_LABEL = ("FULL_2CP", "FULL_3CP", "HALF_2CP", "HALF_3CP")
+
+    def __init__(self, cfg: PipelineConfig):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.stages = {}
+        self.pairs = {}
+        for mode, on in (("full", cfg.test_full), ("half", cfg.test_half)):
+            if not on:
+                continue
+            specs = tuple(
+                affine_plane.PlaneSpec(mode, n_cp, cfg.frame_w, cfg.frame_h,
+                                       cfg.extra_iters)
+                for n_cp in (2, 3))
+            if cfg.fused:
+                self.pairs[mode] = affine_plane.build_pair_stage(
+                    *specs, device=self.device)
+            else:
+                for spec in specs:
+                    self.stages[(mode, spec.n_cp)] = affine_plane.build_stage(
+                        spec, device=self.device)
+        self._zeros = {
+            mode: affine_plane.zero_cpmvs(
+                affine_plane.PlaneSpec(mode, 2, cfg.frame_w, cfg.frame_h),
+                device=self.device)
+            for mode in ("full", "half")
+        }
+
+    def _run_stage(self, key, pred, poc, ref_idx, ref_dev, orig_dev, lam,
+                   prev, timing):
+        """One stage dispatch; with timing, bracketed by START/FINISHED EXEC
+        stamps per (pred, refIdx, POC) as the reference prints them
+        (main.cpp:764-955)."""
+        fn = self.stages[key]
+        if timing is None:
+            return fn(ref_dev, orig_dev, lam, prev)
+        label = f"EXEC {self.PRED_LABEL[pred]} POC {poc} ref {ref_idx}"
+        timing.stamp(f"START {label}")
+        with _Timer(self.device) as tm:
+            out = fn(ref_dev, orig_dev, lam, prev)
+        timing.stamp(f"FINISHED {label}")
+        timing.add(pred, tm.seconds, label)
+        return out
+
+    def _run_pair(self, mode, base, poc, ref_idx, ref_dev, orig_dev, lam,
+                  timing):
+        """One 2CP->3CP pair dispatch (cfg.fused); with timing, the time is
+        attributed to the pair."""
+        fn = self.pairs[mode]
+        prev = self._zeros[mode]
+        if timing is None:
+            return fn(ref_dev, orig_dev, lam, prev)
+        lbl = (f"EXEC {self.PRED_LABEL[base]}+{self.PRED_LABEL[base + 1]} "
+               f"POC {poc} ref {ref_idx}")
+        timing.stamp(f"START {lbl}")
+        with _Timer(self.device) as tm:
+            out = fn(ref_dev, orig_dev, lam, prev)
+        timing.stamp(f"FINISHED {lbl}")
+        timing.add_pair(base, tm.seconds, lbl)
+        return out
+
+    def _put(self, frame: np.ndarray) -> torch.Tensor:
+        """Stage a host frame on the device as int32 [fh*fw]; on the card
+        the copy is asynchronous from pinned memory."""
+        host = torch.from_numpy(
+            np.ascontiguousarray(frame, np.int32).reshape(-1))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host
+
+    def encode(
+        self,
+        orig_frames: np.ndarray,   # [N, H, W] (POC 1..N)
+        ref_frames: np.ndarray,    # [N, H, W] (reconstructed POC 0..N-1)
+        on_result: Optional[Callable[[StageResult], None]] = None,
+        timing=None,
+    ) -> List[StageResult]:
+        cfg = self.cfg
+        n_frames = orig_frames.shape[0]
+        refbuf = ReferenceBuffer()
+        frames_by_poc: Dict[int, torch.Tensor] = {}
+        results: List[StageResult] = []
+
+        # stage the first original frame (prefetching happens per iteration)
+        orig_dev = self._put(orig_frames[0])
+        next_orig = None
+
+        for curr in range(n_frames):
+            poc = curr + 1
+            num_refs = min(C.MAX_REFS, poc)
+            lam = torch.tensor(np.float32(C.lambda_for(cfg.qp, poc)),
+                               dtype=torch.float32, device=self.device)
+
+            # reference list update: recon frame (poc-1) enters slot 0
+            frames_by_poc[poc - 1] = self._put(ref_frames[curr])
+            refbuf.push(poc)
+            ref_labels = refbuf.ref_list(poc)
+            # drop frames no longer referenced (keeps device memory flat)
+            live = set(ref_labels)
+            frames_by_poc = {k: v for k, v in frames_by_poc.items()
+                             if k in live}
+
+            # prefetch of the next original frame (double buffering,
+            # cf. main.cpp:711-715)
+            if curr + 1 < n_frames:
+                next_orig = self._put(orig_frames[curr + 1])
+
+            for ref_idx in range(num_refs):
+                ref_dev = frames_by_poc[ref_labels[ref_idx]]
+                per_ref: List[StageResult] = []
+                for mode, base in (("full", PRED_FULL_2CP),
+                                   ("half", PRED_HALF_2CP)):
+                    if mode in self.pairs:
+                        cost2, cp2, cost3, cp3 = self._run_pair(
+                            mode, base, poc, ref_idx, ref_dev, orig_dev,
+                            lam, timing)
+                    elif (mode, 2) in self.stages:
+                        cost2, cp2 = self._run_stage(
+                            (mode, 2), base, poc, ref_idx,
+                            ref_dev, orig_dev, lam, self._zeros[mode], timing)
+                        cost3, cp3 = self._run_stage(
+                            (mode, 3), base + 1, poc, ref_idx,
+                            ref_dev, orig_dev, lam, cp2, timing)
+                    else:
+                        continue
+                    per_ref.append(StageResult(poc, ref_idx, base, cost2, cp2))
+                    per_ref.append(
+                        StageResult(poc, ref_idx, base + 1, cost3, cp3))
+                for r in per_ref:
+                    results.append(r)
+                    if on_result is not None:
+                        on_result(r)
+
+            if next_orig is not None:
+                orig_dev, next_orig = next_orig, None
+        return results
