@@ -28,13 +28,27 @@ Phases, in order (any failure exits non-zero before the result line):
    time per launch on the phase-7 inputs, and per mode one 1080p pair on
    the main path's content — its device-busy time, idle share, device
    launches and the two kernels' device time per launch (``[profile]``
-   lines).
+   lines);
+9. the probe path: ``tools.mosaic_probe.main`` with the launch counts
+   zeroed just before and read just after (each of the six probe kernels
+   once), then each probe kernel against its plain version and the numpy
+   window at the tool's offset and the edges of its defined range
+   (tolerance 0), and its time beside an empty launch's; the probe rows go
+   into the ``kernels`` line;
+10. the CLI's single-card flags at 416x240, -f 2: an uninterrupted run with
+   -l; a run with -f 1 and then -f 2 on one --CheckpointDir, whose logs must
+   equal the uninterrupted run's byte for byte; a run with --DeviceTrace and
+   --MemoryReport, whose trace must vary and whose trace and report must
+   show a peak above the bytes the earlier phases left allocated.  Each
+   run's K1/K2 launches are counted as in phase 6.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -51,7 +65,12 @@ OPS_PER_S = 67e12
 FW, FH = 1920, 1080
 SMALL_W, SMALL_H = 416, 240
 REPLACES = {"warp": "vvc_affine_tpu/ops/warp.py:252",
-            "blockreduce": "vvc_affine_tpu/ops/blockreduce.py:147"}
+            "blockreduce": "vvc_affine_tpu/ops/blockreduce.py:147",
+            **{f"probe_{p}": f"tools/mosaic_probe.py:{line}" for p, line in (
+                ("k_a", 59), ("k_b", 63), ("k_c", 69), ("k_d_rows", 78),
+                ("k_d_lanes", 82), ("k_e", 74))}}
+# K1 and K2 launches per 2CP->3CP pair, FULL + HALF, per frame-ref
+PAIR_LAUNCHES = {"warp": 20, "blockreduce": 22}
 
 
 def _require(ok, msg):
@@ -251,7 +270,8 @@ def run_main_path(n_ctu):
         cli_s = time.time() - t0
         launches = dict(kernels.launches)
         _require(rc == 0, f"cli.main returned {rc}")
-        _require(launches == {"warp": 60, "blockreduce": 66},
+        _require(launches == _path_launches(
+            {k: 3 * v for k, v in PAIR_LAUNCHES.items()}),
                  f"main path launches {launches}, want warp 60 and "
                  f"blockreduce 66")
         n_rows = 0
@@ -270,6 +290,13 @@ def run_main_path(n_ctu):
     print(json.dumps({"main_path": {"cli_s": cli_s, "launches": launches,
                                     "log_rows": n_rows}}), flush=True)
     return launches
+
+
+def _path_launches(counts):
+    """Every kernel's launch count for a path that launches ``counts``."""
+    from vvc_affine_tpu_torch import kernels
+
+    return {**dict.fromkeys(kernels.launches, 0), **counts}
 
 
 def _warp_cost(t, act):
@@ -420,6 +447,182 @@ def profile_pairs():
         print(f"[profile] {json.dumps(row)}", flush=True)
 
 
+def _library_window(name, x, s):
+    """One PyTorch expression on views of ``x`` that computes probe
+    ``name``'s window at an in-range offset ``s`` (no wrap, no clamp): the
+    yardstick ``library_ms``, never called by the port."""
+    import torch
+
+    if name == "k_b":
+        return torch.roll(x[0:48, 0:128], s, 0)[0:8].to(torch.int32)
+    if name == "k_c":
+        return torch.roll(x[0:8], s, 1)[:, 0:128].to(torch.int32)
+    row, lane = {"k_a": (8 * s, 0), "k_d_rows": (s, 0), "k_d_lanes": (0, s),
+                 "k_e": (0, s)}[name]
+    return x.narrow(0, row, 8).narrow(1, lane, 128).to(torch.int32)
+
+
+def check_probes():
+    """Phase 9: the probe tool's path, each probe kernel against its plain
+    version and the numpy window, and the probe rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.tools import mosaic_probe as mp
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rc = mp.main([])
+    torch.cuda.synchronize()
+    path = dict(kernels.launches)
+    _require(rc == 0, f"mosaic_probe.main returned {rc}")
+    _require(path == _path_launches({f"probe_{n}": 1 for n in mp.PROBES}),
+             f"probe path launches {path}, want each probe once")
+
+    x_np = mp.tool_input()
+    x = torch.as_tensor(x_np, device="cuda")
+    errs = {}
+    kernels.reset_launches()
+    for name in mp.PROBES:
+        err = 0
+        for s in mp.CASES[name]:
+            got = mp.probe(name, x, s)
+            plain = mp.probe_plain(name, x, s)
+            torch.cuda.synchronize()
+            _require(got.dtype == torch.int32 and got.is_cuda
+                     and tuple(got.shape) == mp.OUT_SHAPE,
+                     f"{name} s={s}: {got.dtype} {tuple(got.shape)}")
+            want = torch.as_tensor(mp.expected(name, x_np, s), device="cuda")
+            err = max(err, int((got - plain).abs().max()),
+                      int((got - want).abs().max()))
+        _require(err == 0, f"{name}: max |err| {err} at offsets "
+                           f"{mp.CASES[name]}")
+        errs[name] = err
+        print(f"[probe] {name}: bit-equal to probe_plain and numpy at s in "
+              f"{mp.CASES[name]}", flush=True)
+    _require(dict(kernels.launches) == _path_launches(
+        {f"probe_{n}": len(mp.CASES[n]) for n in mp.PROBES}),
+             f"comparison launches {kernels.launches}")
+
+    # the floor under every probe's ms: an empty block of the probes' shape,
+    # bound and launched the same way
+    empty_ms = _median_ms(kernels.bind("empty_launch", x.device), 5, 20)
+    print(f"[time] {json.dumps({'empty_launch_ms': empty_ms})}", flush=True)
+    # the window read once (int16) and written once (int32), and the offset
+    nbytes = 8 * 128 * 2 + 8 * 128 * 4 + 4
+    rows = []
+    for name, (_, s) in mp.PROBES.items():
+        out, run = mp.bind_probe(name, x, s)
+        lib = _library_window(name, x, s)
+        run()
+        torch.cuda.synchronize()
+        _require(torch.equal(out, lib), f"{name}: library window differs")
+        rows.append({
+            "name": f"probe_{name}", "route": "cuda",
+            "source": "vvc_affine_tpu_torch/csrc/window_probe.cu",
+            "replaces": REPLACES[f"probe_{name}"],
+            "launches": path[f"probe_{name}"], "max_abs_err": errs[name],
+            "ms": _median_ms(run, 5, 20),
+            "plain_ms": _median_ms(lambda n=name, s=s: mp.probe_plain(n, x, s)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": _median_ms(lambda n=name, s=s: _library_window(
+                n, x, s)),
+            "shape": f"x int16 [176, 256] -> int32 [8, 128], s = {s}"})
+    return rows
+
+
+def _read_trace(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    rows = [(float(t), int(b), int(p)) for t, b, p in
+            (ln.split(",") for ln in lines[1:])]
+    return lines[0], rows
+
+
+def run_single_card_flags():
+    """Phase 10: --CheckpointDir, --DeviceTrace and --MemoryReport through
+    ``cli.main`` on the card at 416x240, -f 2."""
+    import torch
+
+    from vvc_affine_tpu_torch import cli, kernels, testing
+    from vvc_affine_tpu_torch.runtime import frames as frames_io
+    from vvc_affine_tpu_torch.runtime import reporting
+
+    def drive(argv, frame_refs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        _require(rc == 0, f"cli.main {argv} returned {rc}")
+        want = {k: frame_refs * v for k, v in PAIR_LAUNCHES.items()}
+        _require(launches == _path_launches(want),
+                 f"cli.main {argv}: launches {launches}, want {want}")
+        return buf.getvalue(), want
+
+    def logs(prefix):
+        """name (without the prefix) -> bytes of every decision log"""
+        out = {}
+        for pred in range(4):
+            for path in reporting.log_paths(prefix, pred):
+                with open(path, "rb") as f:
+                    out[path[len(prefix):]] = f.read()
+        return out
+
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        orig_g, recon_g = testing.affine_gop(SMALL_W, SMALL_H, 2, seed=1)
+        opath, rpath = (os.path.join(tmp, f) for f in ("orig.csv", "ref.csv"))
+        frames_io.write_frames_csv(opath, orig_g)
+        frames_io.write_frames_csv(rpath, recon_g)
+        base = ["-s", f"{SMALL_W}x{SMALL_H}", "-q", "32", "-o", opath,
+                "-r", rpath]
+        a, b = os.path.join(tmp, "x"), os.path.join(tmp, "y")
+        _, summary["uninterrupted"] = drive(["-f", "2"] + base + ["-l", a], 3)
+
+        ckpt = ["-l", b, "--CheckpointDir", os.path.join(tmp, "ckpt")]
+        _, summary["checkpoint_f1"] = drive(["-f", "1"] + base + ckpt, 1)
+        _, summary["resumed_f2"] = drive(["-f", "2"] + base + ckpt, 2)
+        want, got = logs(a), logs(b)
+        _require(len(want) == sum(len(reporting.log_paths("x", p))
+                                  for p in range(4)), "missing logs")
+        _require(got == want, "resumed run's logs differ from the "
+                              "uninterrupted run's")
+        summary["resumed_logs_identical"] = len(want)
+
+        # earlier phases leave tensors allocated: the trace and the report
+        # must show this run's own allocations above that baseline
+        trace = os.path.join(tmp, "trace.csv")
+        torch.cuda.synchronize()
+        baseline = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, summary["trace_run"] = drive(
+            ["-f", "2"] + base + ["--DeviceTrace", trace, "--MemoryReport"], 3)
+        header, rows = _read_trace(trace)
+        _require(header == "t_epoch,bytes_in_use,peak_bytes_in_use",
+                 f"trace header {header!r}")
+        _require(len(rows) > 0, "trace has no rows")
+        in_use = {r[1] for r in rows}
+        trace_peak = max(r[2] for r in rows)
+        _require(len(in_use) > 1 and trace_peak > baseline,
+                 f"trace: {len(rows)} rows, {len(in_use)} distinct "
+                 f"bytes_in_use, peak {trace_peak} <= baseline {baseline}")
+        report = dict(ln.rsplit(": ", 1) for ln in out.splitlines()
+                      if ln.startswith("device ") and ": " in ln)
+        dev_bytes = {k: int(report.get(k, "0")) for k in
+                     ("device bytes_in_use", "device peak_bytes_in_use")}
+        _require(dev_bytes["device bytes_in_use"] > 0
+                 and dev_bytes["device peak_bytes_in_use"] > baseline,
+                 f"memory report device lines {report}, baseline {baseline}")
+        summary.update(baseline_bytes=baseline, trace_rows=len(rows),
+                       trace_distinct_bytes=len(in_use),
+                       trace_peak_bytes=trace_peak, **dev_bytes)
+    print(json.dumps({"single_card_flags": summary}), flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -460,6 +663,8 @@ def main(argv=None) -> int:
     if args.profile:
         profile_kernels(bound)
         profile_pairs()
+    rows += check_probes()
+    run_single_card_flags()
 
     print(f"[total] {time.time() - t_start:.1f} s", flush=True)
     print(card, flush=True)

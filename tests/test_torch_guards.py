@@ -18,6 +18,7 @@ import torch
 from vvc_affine_tpu_torch import cli, kernels, resolve_device
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.models import pipeline
+from vvc_affine_tpu_torch.tools import mosaic_probe
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -73,6 +74,8 @@ def test_entry_points_refuse_the_cpu_without_a_card(no_cuda, tmp_path):
         cli.main(args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(args + ["--DeviceIndex", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mosaic_probe.main([])
     # asking for the CPU is the one way to run there
     assert tap.zero_cpmvs(s2, "cpu").device.type == "cpu"
 

@@ -5,14 +5,16 @@ JAX package ``vvc_affine_tpu``, run eagerly in PyTorch on an NVIDIA card.
 The two kernels of the dense plane engine — the warp (motion-compensated
 prediction of every 4x4 block of a CTU plane) and the block reduction (SATD,
 Sobel gradients and the five normal-equation moments) — are hand-written
-CUDA (``csrc/``), built with ``nvcc`` at first use (``kernels.py``).  Every
-kernel wrapper keeps a plain PyTorch version of the same function, which it
-runs only for tensors on the CPU; the tests hold the port against the JAX
-package on the CPU through those plain versions.
+CUDA (``csrc/``), built with ``nvcc`` at first use (``kernels.py``), as are
+the six window probes of ``tools/mosaic_probe.py``.  Every kernel wrapper
+keeps a plain PyTorch version of the same function, which it runs only for
+tensors on the CPU; the tests hold the port against the JAX package on the
+CPU through those plain versions.
 
 Entry points (``models.affine_plane.build_stage``/``build_pair_stage``,
-``models.pipeline.AffineMEPipeline`` and ``cli.main``) run on ``cuda``
-unless the caller passes ``device="cpu"``; with no card they raise.
+``models.pipeline.AffineMEPipeline``, ``cli.main`` and
+``tools.mosaic_probe.main``) run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card they raise.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ drive the same run shape:
     python -m vvc_affine_tpu_torch.cli -f 2 -s 1920x1080 -q 32 \
         -o original_frames.csv -r reconstructed_frames.csv -l decisions_log
 
-Runs on ``cuda:<DeviceIndex>``; flags of the JAX package that this port does
-not implement yet are refused with exit code 1.
+Runs on ``cuda:<DeviceIndex>``; the flags of the JAX package that this port
+does not implement yet (``--NumChips > 1``, ``--Coordinator``, ``--Engine
+gather``) are refused with exit code 1.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import sys
 from vvc_affine_tpu_torch.models.pipeline import AffineMEPipeline, PipelineConfig
 from vvc_affine_tpu_torch.runtime import frames as frames_io
 from vvc_affine_tpu_torch.runtime import reporting
+from vvc_affine_tpu_torch.runtime.checkpoint import CheckpointManager
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,11 +56,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Decision-log file prefix (empty: no logs)")
     p.add_argument("--ReportToTerminal", action="store_true")
     p.add_argument("--CheckpointDir", type=str, default="",
-                   help="GOP-level checkpoint/resume (not yet ported)")
+                   help="enable GOP-level checkpoint/resume in this directory")
     p.add_argument("--MemoryReport", action="store_true",
-                   help="device-buffer footprint table (not yet ported)")
+                   help="print the device-buffer footprint table")
     p.add_argument("--DeviceTrace", type=str, default="",
-                   help="device activity trace CSV (not yet ported)")
+                   help="write a ~1ms in-process device activity trace CSV "
+                        "(join with tools/energy_report.py)")
     p.add_argument("--SkipFull", action="store_true",
                    help="Skip aligned-CU prediction")
     p.add_argument("--SkipHalf", action="store_true",
@@ -79,12 +82,6 @@ def _unported(args) -> list:
         flags.append("--NumChips > 1")
     if args.Coordinator:
         flags.append("--Coordinator")
-    if args.CheckpointDir:
-        flags.append("--CheckpointDir")
-    if args.DeviceTrace:
-        flags.append("--DeviceTrace")
-    if args.MemoryReport:
-        flags.append("--MemoryReport")
     if args.Engine == "gather":
         flags.append("--Engine gather")
     return flags
@@ -123,7 +120,11 @@ def main(argv=None, device=None) -> int:
     timing.stamp("FINISHED READ .csv")
 
     prefix = args.CpmvLogFile or None
-    if prefix:
+    ckpt = None
+    if args.CheckpointDir:
+        ckpt = CheckpointManager(args.CheckpointDir, prefix)
+    # a resumed run keeps the logs of the frames it has done
+    if prefix and (ckpt is None or ckpt.completed_poc() == 0):
         reporting.remove_old_traces(prefix)
 
     def on_result(r):
@@ -138,7 +139,18 @@ def main(argv=None, device=None) -> int:
             r.poc, r.ref_idx, to_terminal=args.ReportToTerminal,
         )
 
-    pipe.encode(orig, ref, on_result=on_result, timing=timing)
+    tracer = None
+    if args.DeviceTrace:
+        tracer = reporting.DeviceTraceSampler(args.DeviceTrace, pipe.device)
+        tracer.start()
+    try:
+        pipe.encode(orig, ref, on_result=on_result, timing=timing,
+                    checkpoint=ckpt)
+    finally:
+        if tracer is not None:
+            tracer.stop()
+    if args.MemoryReport:
+        print(reporting.memory_report(w, h, pipe.device))
     timing.report(n)
     return 0
 

@@ -38,6 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _KERNELS = {
     "warp": ("warp.cu", "vvc_warp", "ppppppppp" + "iiii"),
     "blockreduce": ("blockreduce.cu", "vvc_blockreduce", "ppppp" + "iii"),
+    **{f"probe_{p}": ("window_probe.cu", f"vvc_probe_{p}", "ppi")
+       for p in ("k_a", "k_b", "k_c", "k_d_rows", "k_d_lanes", "k_e")},
+    # an empty kernel of the probes' shape: the floor of a launch
+    "empty_launch": ("window_probe.cu", "vvc_empty_launch", ""),
 }
 
 # launches of each kernel since the last reset_launches()

@@ -160,12 +160,18 @@ class AffineMEPipeline:
         ref_frames: np.ndarray,    # [N, H, W] (reconstructed POC 0..N-1)
         on_result: Optional[Callable[[StageResult], None]] = None,
         timing=None,
+        checkpoint=None,           # runtime.checkpoint.CheckpointManager
     ) -> List[StageResult]:
         cfg = self.cfg
         n_frames = orig_frames.shape[0]
         refbuf = ReferenceBuffer()
         frames_by_poc: Dict[int, torch.Tensor] = {}
         results: List[StageResult] = []
+
+        done_poc = 0
+        if checkpoint is not None:
+            done_poc = checkpoint.completed_poc()
+            checkpoint.prune_logs_after(done_poc)
 
         # stage the first original frame (prefetching happens per iteration)
         orig_dev = self._put(orig_frames[0])
@@ -190,6 +196,13 @@ class AffineMEPipeline:
             # cf. main.cpp:711-715)
             if curr + 1 < n_frames:
                 next_orig = self._put(orig_frames[curr + 1])
+
+            if poc <= done_poc:
+                # resumed run: frame already complete; only the reference
+                # bookkeeping above was needed
+                if next_orig is not None:
+                    orig_dev, next_orig = next_orig, None
+                continue
 
             for ref_idx in range(num_refs):
                 ref_dev = frames_by_poc[ref_labels[ref_idx]]
@@ -217,6 +230,8 @@ class AffineMEPipeline:
                     if on_result is not None:
                         on_result(r)
 
+            if checkpoint is not None:
+                checkpoint.mark_frame_done(poc)
             if next_orig is not None:
                 orig_dev, next_orig = next_orig, None
         return results

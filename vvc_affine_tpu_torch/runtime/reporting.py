@@ -1,4 +1,4 @@
-"""Decision-log CSV writer and timing report.
+"""Decision-log CSV writer, timing report, device trace and memory report.
 
 Behavioural spec: reportAffineResultsMaster_new
 (main_aux_functions.h:387-525) — one CSV per (pred type, CU size string),
@@ -10,13 +10,17 @@ deletes stale logs before a run.  The bytes written are the JAX package's.
 
 from __future__ import annotations
 
+import csv
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from vvc_affine_tpu_torch import geometry as G
+from vvc_affine_tpu_torch import planes as P
 
 PRED_NAMES = ("FULL_2CPs", "FULL_3CPs", "HALF_2CPs", "HALF_3CPs")
 PRED_MODES = ("full", "full", "half", "half")
@@ -119,6 +123,51 @@ def report_results(
             fh.close()
 
 
+class DeviceTraceSampler:
+    """In-process ~1 ms device-memory activity sampler.
+
+    The JAX package's trace CSV (``t_epoch,bytes_in_use,peak_bytes_in_use``,
+    one row per period), so ``tools/energy_report.py`` joins it with the run
+    log unchanged.  It samples the run's own device: the caching
+    allocator's ``allocated_bytes.all.current`` and ``.peak`` on a CUDA
+    device, zeros on the CPU (which has no such counters).
+    """
+
+    HEADER = ("t_epoch", "bytes_in_use", "peak_bytes_in_use")
+    PERIOD_S = 1e-3
+
+    def __init__(self, out_path: str, device: torch.device) -> None:
+        self.out_path = out_path
+        self.device = torch.device(device)
+        self.rows: list = []
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        cuda = self.device.type == "cuda"
+        while not self._stop.is_set():
+            t = time.time()
+            if cuda:
+                stats = torch.cuda.memory_stats(self.device)
+                self.rows.append((t, stats.get("allocated_bytes.all.current", 0),
+                                  stats.get("allocated_bytes.all.peak", 0)))
+            else:
+                self.rows.append((t, 0, 0))
+            time.sleep(self.PERIOD_S)
+
+    def start(self) -> None:
+        self._th.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._th.join(timeout=2)
+        with open(self.out_path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(self.HEADER)
+            w.writerows(self.rows)
+        print(f"device trace: {len(self.rows)} samples -> {self.out_path}")
+
+
 class Timing:
     """Per-pred execution-time accumulator (ns) + wall-clock stamps.
 
@@ -167,3 +216,53 @@ class Timing:
         for label, seconds in self.events:
             print(f"{label},{seconds * 1e9:f}")
         print("=-" * 23)
+
+
+def memory_report(frame_w: int, frame_h: int, device) -> str:
+    """Per-stage device-buffer footprint table of the port's own buffers.
+
+    Analogue of accessMemoryUsage/reportMemoryUsage
+    (main_aux_functions.h:148-234, 1448-1471), which queries
+    clGetMemObjectInfo for every kernel argument.  The sizes are static
+    functions of the frame geometry.  Lines for buffers that the JAX
+    package's report also lists carry its text and numbers (the frame
+    plane, the displacement/phase planes, the int16 pred planes, the per-CU
+    outputs and the int64 equation systems); its TPU-only buffers (refpad,
+    per-CTU tiles, lane-expanded tap planes) have no line.  The two device
+    lines read the caching allocator of ``device`` (n/a on the CPU).
+    """
+    grid = G.frame_grid(frame_w, frame_h)
+    n = grid.num_ctus
+    lines = [f"MEMORY USAGE (bytes), frame {frame_w}x{frame_h}, {n} CTUs"]
+    lines.append(f"ref/orig plane (int32): {frame_w * frame_h * 4}")
+    lines.append(f"per-CTU ref/orig planes (int32): {2 * n * 128 * 128 * 4}")
+    for mode in ("full", "half"):
+        lay = G.layout(mode)
+        nb = len(P.bin_layout(mode)[0])
+        lines.append(
+            f"[{mode}] displacement/phase planes dy,dx,fx,fy (int32): "
+            f"{4 * n * nb * 32 * 32 * 4}")
+        lines.append(
+            f"[{mode}] pred planes (int16): {n * nb * 128 * 128 * 2}")
+        lines.append(
+            f"[{mode}] K2 SATD blocks (int32): {n * nb * 32 * 32 * 4}")
+        lines.append(
+            f"[{mode}] K2 moment blocks (int32): {n * nb * 5 * 32 * 32 * 4}")
+        lines.append(
+            f"[{mode}] per-CU cost/cpmvs out (int64+int32): "
+            f"{n * lay.cus_per_ctu * (8 + 24)}")
+        lines.append(
+            f"[{mode}] equation systems M,rhs 2CP (int64): "
+            f"{n * lay.cus_per_ctu * (16 + 4) * 8}")
+        lines.append(
+            f"[{mode}] equation systems M,rhs 3CP (int64): "
+            f"{n * lay.cus_per_ctu * (36 + 6) * 8}")
+    device = torch.device(device)
+    if device.type == "cuda":
+        in_use = torch.cuda.memory_allocated(device)
+        peak = torch.cuda.max_memory_allocated(device)
+    else:
+        in_use = peak = "n/a"
+    lines.append(f"device bytes_in_use: {in_use}")
+    lines.append(f"device peak_bytes_in_use: {peak}")
+    return "\n".join(lines)
