@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--ab DIR [--ab-k2-masks]]
 
 Phases, in order (any failure exits non-zero before the result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every kernel from ``vvc_affine_tpu_torch/csrc`` with nvcc;
 3. K1 (warp) against its plain version ``warp_xla`` at 1080p shapes, both
-   alignment modes, random phases and displacements up to |d| = 300 (windows
-   past every frame edge): tolerance 0, bit equality of the int16 planes;
+   alignment modes, on every field family: random phases and displacements
+   up to |d| = 300, a smooth zoom and rotation (CPMVs through the engine's
+   ``_mv_planes``), windows exactly at and one sample past the edges of
+   each strip's staged region, every block but the strips' centres on the
+   global path, and windows pulled past each frame edge; every CTU, so
+   every strip at every frame border.  Tolerance 0, bit equality of the
+   int16 planes; the share of blocks on K1's global path per field;
 4. K2 (block reduction) against its plain version at 1080p shapes, refine on
    and off and the one-bin broadcast: tolerance 0 on the valid slots of
    in-frame CUs (the only outputs the engine reads);
@@ -22,8 +27,16 @@ Phases, in order (any failure exits non-zero before the result line):
    checked for row count, shape and range;
 7. per-kernel times at the main path's 1080p shapes (CUDA events over
    bare back-to-back launches, and over the whole wrapper), their bounds,
-   and the plain versions' times: the FULL shapes go into the one
-   ``kernels`` JSON line, the HALF shapes into ``[time]`` lines;
+   and the plain versions' times; and ``ms_path``: every K1 and K2 launch
+   of one 1080p pair per mode of the main path, captured and timed the
+   same way, beside its bound, with the loaded kernels' registers, local
+   memory and shared memory (``kernels.attributes``).  The FULL shapes go
+   into the one ``kernels`` JSON line, the HALF shapes into ``[time]``
+   lines, the per-launch times into ``[path]`` lines.  With ``--ab DIR``:
+   the ``warp.cu`` and ``blockreduce.cu`` in DIR (another version of
+   ``csrc/``, built and bound through ``kernels.source_dir``) against this
+   tree's on the captured launches, outputs first checked equal, then
+   timed in turns (other, this, this, other; ``[ab]`` lines);
 8. with ``--profile`` only: under torch.profiler, each kernel's device
    time per launch on the phase-7 inputs, and per mode one 1080p pair on
    the main path's content — its device-busy time, idle share, device
@@ -119,7 +132,8 @@ def build_kernels():
     for src, log in sorted(kernels.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[build] {src}: {line.strip()}", flush=True)
+                print(f"[build] {os.path.relpath(src)}: {line.strip()}",
+                      flush=True)
 
 
 def _valid_slots(t):
@@ -138,10 +152,108 @@ def _valid_slots(t):
     return out
 
 
-def check_warp(tables, ref, rng):
-    """Phase 3: K1 == warp_xla, bit for bit.  Returns per-mode arguments
-    for the timing phase and the error."""
+def _cpmv_field(t, spec, kind):
+    """CPMVs int32 [nCtu, nCU, 3, 2] (1/16 pel) of a global zoom or
+    rotation about the frame centre, at every CU's three control points."""
     import numpy as np
+    import torch
+
+    if kind == "zoom":
+        a = np.array([[0.02, 0.0], [0.0, 0.02]])
+    else:                                        # rotation by 1.5 degrees
+        th = np.deg2rad(1.5)
+        a = np.array([[np.cos(th) - 1, -np.sin(th)],
+                      [np.sin(th), np.cos(th) - 1]])
+    x0, y0 = (v.cpu().numpy().astype(np.float64) for v in (t.abs_x, t.abs_y))
+    w = t.cu_w.cpu().numpy()[None, :]
+    h = t.cu_h.cpu().numpy()[None, :]
+    pts = [(x0, y0), (x0 + w, y0), (x0, y0 + h)]
+    cp = np.stack([np.stack([a[0, 0] * (x - FW / 2) + a[0, 1] * (y - FH / 2),
+                             a[1, 0] * (x - FW / 2) + a[1, 1] * (y - FH / 2)],
+                            axis=-1) for x, y in pts], axis=-2)
+    return torch.as_tensor(np.rint(16 * cp).astype(np.int32),
+                           device=t.within.device)
+
+
+def _edge_field(t, rng, past, dev):
+    """Displacements that put each block's window exactly at (``past`` 0)
+    or one sample past (1) an edge of its strip's staged region: per strip
+    and group of bins a random centre displacement, every other block at a
+    region edge chosen at random."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch.ops import warp as wp
+
+    n = (t.n_ctus, t.n_bins, 4)
+    # one centre per group of bins: the group shares its region
+    g = wp.group_bins(n[1])
+    cyx = rng.integers(-40, 41, size=(2, n[0], -(-n[1] // g), 4, 1, 1))
+    cyx = np.repeat(cyx, g, axis=2)[:, :, :n[1]]
+    byl = 4 * np.arange(8)[:, None]
+    bx = 4 * np.arange(32)[None, :]
+    out = []
+    for c, blk, m, hi in ((cyx[0], byl, wp.MY, wp.RH - 9),
+                          (cyx[1], bx, wp.MX, wp.RW - 9)):
+        w = np.where(rng.random(n + (8, 32)) < 0.5, -past, hi + past)
+        d = c + w - blk - m                       # window origin at w
+        d[..., 4, 16] = c[..., 0, 0]              # the centre block
+        out.append(torch.as_tensor(d.reshape(n[:2] + (32, 32))
+                                   .astype(np.int32), device=dev))
+    return out
+
+
+def _warp_fields(t, mode, rng, dev):
+    """Phase 3's motion fields, name -> (dy, dx, fx, fy) int32
+    [nCtu, nBins, 32, 32]."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
+    shape = (t.n_ctus, t.n_bins, 32, 32)
+
+    def phases():
+        return [torch.as_tensor(rng.integers(0, 16, size=shape)
+                                .astype(np.int32), device=dev)
+                for _ in range(2)]
+
+    fields = {}
+    d = rng.integers(-8, 9, size=(2,) + shape)
+    far = rng.random((2,) + shape) < 0.03
+    d = np.where(far, rng.integers(-300, 301, size=(2,) + shape), d)
+    fields["random |d|<=300"] = [torch.as_tensor(v.astype(np.int32),
+                                                 device=dev) for v in d]
+    fields["random |d|<=300"] += phases()
+    spec = ap.PlaneSpec(mode, 2, FW, FH)
+    for kind in ("zoom", "rotation"):
+        fields[kind] = list(ap._mv_planes(spec, t, _cpmv_field(t, spec, kind)))
+    for past in (0, 1):
+        fields[f"region edge +{past}"] = _edge_field(t, rng, past, dev) \
+            + phases()
+    # every block but each strip's centre 40 rows from the centre's motion
+    dy, dx = _edge_field(t, rng, 0, dev)
+    cy = dy.reshape(t.n_ctus, t.n_bins, 4, 8, 32)[:, :, :, 4:5, 16:17]
+    glob = torch.full_like(dy.reshape(cy.shape[:3] + (8, 32)), 40) + cy
+    glob[:, :, :, 4, 16] = cy[..., 0, 0]
+    fields["global path"] = [glob.reshape(shape), dx] + phases()
+    # windows pulled past each frame edge (staged, clamped)
+    for name, ddy, ddx in (("top", -FH, 0), ("bottom", FH, 0),
+                           ("left", 0, -FW), ("right", 0, FW)):
+        fields[f"past {name} edge"] = [
+            torch.full(shape, ddy, dtype=torch.int32, device=dev)
+            + torch.as_tensor(rng.integers(-3, 4, size=shape)
+                              .astype(np.int32), device=dev),
+            torch.full(shape, ddx, dtype=torch.int32, device=dev)
+            + torch.as_tensor(rng.integers(-3, 4, size=shape)
+                              .astype(np.int32), device=dev)] + phases()
+    return fields
+
+
+def check_warp(tables, ref, rng):
+    """Phase 3: K1 == warp_xla, bit for bit, on every field family.
+    Returns per-mode arguments (the random field) for the timing phase and
+    the largest error."""
     import torch
 
     from vvc_affine_tpu_torch.ops import warp as wp
@@ -149,35 +261,47 @@ def check_warp(tables, ref, rng):
     dev = ref.device
     out = {}
     for mode, t in tables.items():
-        shape = (t.n_ctus, t.n_bins, 32, 32)
-        d = rng.integers(-8, 9, size=(2,) + shape)
-        far = rng.random((2,) + shape) < 0.03
-        d = np.where(far, rng.integers(-300, 301, size=(2,) + shape), d)
-        dy, dx = (torch.as_tensor(v.astype(np.int32), device=dev) for v in d)
-        fx, fy = (torch.as_tensor(rng.integers(0, 16, size=shape)
-                                  .astype(np.int32), device=dev)
-                  for _ in range(2))
         ones = torch.ones((t.n_ctus, t.n_bins, 16), dtype=torch.int32,
                           device=dev)
-        want = wp.warp_xla(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx,
-                           wp.tap_planes(fx), wp.tap_planes(fy))
-        got = wp.warp(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx, fx, fy, ones)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want).abs().max())
-        _require(err == 0, f"K1 {mode}: max |err| {err} vs warp_xla")
-        # with the engine's slab mask: equal on every active slab
-        got = wp.warp(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx, fx, fy,
-                      t.slab_active)
-        rows = t.slab_active.repeat_interleave(8, dim=-1).bool()[..., None]
-        err_act = int(((got.to(torch.int32) - want).abs() * rows).max())
-        _require(err_act == 0, f"K1 {mode}: active slabs differ")
-        out[mode] = dict(err=max(err, err_act),
-                         args=(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx, fx, fy,
-                               t.slab_active),
-                         act=float(t.slab_active.float().mean()))
-        print(f"[K1] {mode}: bit-equal to warp_xla ({t.n_ctus}x{t.n_bins} "
-              f"planes, |d| <= 300)", flush=True)
+        shares = {}
+        for name, (dy, dx, fx, fy) in _warp_fields(t, mode, rng,
+                                                   dev).items():
+            want = wp.warp_xla(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx,
+                               wp.tap_planes(fx), wp.tap_planes(fy))
+            got = wp.warp(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx, fx, fy,
+                          ones)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - want).abs().max())
+            _require(err == 0, f"K1 {mode} {name}: max |err| {err}")
+            shares[name] = _global_share(t, dy, dx, ones)
+            if name.startswith("random"):
+                # with the engine's slab mask: equal on every active slab
+                got = wp.warp(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx, fx, fy,
+                              t.slab_active)
+                rows = t.slab_active.repeat_interleave(8, dim=-1).bool()
+                err_act = int(((got.to(torch.int32) - want).abs()
+                               * rows[..., None]).max())
+                _require(err_act == 0, f"K1 {mode}: active slabs differ")
+                out[mode] = dict(err=0,
+                                 args=(ref, FW, FH, t.ctu_y, t.ctu_x, dy, dx,
+                                       fx, fy, t.slab_active),
+                                 act=float(t.slab_active.float().mean()))
+        print(f"[K1] {mode}: bit-equal to warp_xla on {len(shares)} fields "
+              f"({t.n_ctus}x{t.n_bins} planes); global-path share "
+              f"{json.dumps({k: round(v, 4) for k, v in shares.items()})}",
+              flush=True)
     return out
+
+
+def _global_share(t, dy, dx, slab_active):
+    """Share of K1's active blocks that read global memory (the staging
+    rule of ``ops.warp.staging_plan``)."""
+    from vvc_affine_tpu_torch.ops import warp as wp
+
+    _, _, staged = wp.staging_plan(t.ctu_y, t.ctu_x, dy, dx)
+    act = slab_active.repeat_interleave(2, dim=-1).bool()[..., None]
+    act = act.expand_as(staged)
+    return float((~staged & act).sum()) / max(1, int(act.sum()))
 
 
 def check_blockreduce(tables, orig_pl, rng):
@@ -199,7 +323,7 @@ def check_blockreduce(tables, orig_pl, rng):
             s_want, m_want = br.reduce_blocks_plain(
                 pred, orig_pl, t.border_packed, refine)
             s_got, m_got = br.reduce_blocks(
-                pred, orig_pl, t.border_packed, refine)
+                pred, orig_pl, t.border_packed, refine, t.repl)
             torch.cuda.synchronize()
             err = int(((s_got - s_want).abs() * valid).max())
             if refine:
@@ -210,8 +334,8 @@ def check_blockreduce(tables, orig_pl, rng):
             _require(err == 0, f"K2 {mode} bins={pred_bins} refine={refine}"
                                f": max |err| {err}")
             if pred_bins == t.n_bins and refine:
-                out[mode] = dict(err=err,
-                                 args=(pred, orig_pl, t.border_packed, True))
+                out[mode] = dict(err=err, args=(pred, orig_pl,
+                                                t.border_packed, True, t.repl))
             print(f"[K2] {mode} pred_bins={pred_bins} refine={refine}: "
                   f"bit-equal on valid slots", flush=True)
     return out
@@ -310,26 +434,135 @@ def _warp_cost(t, act):
     return nbytes, act * n * 1024 * 2 * (9 * 4 * 6 + 4 * 4 * 6)
 
 
-def _blockreduce_cost(t):
-    """Bytes and operations K2 needs with moments: int16 planes, the int32
-    original CTUs and border masks in; SATD and five moments out.  Per
-    sample about 50 integer operations: SATD ~12 (difference, butterflies,
-    abs, sum), Sobel 2 x 12, replication selects ~4, products and sums 10."""
-    n = t.n_ctus * t.n_bins
-    nbytes = (n * 16384 * 2 + t.n_ctus * 16384 * 4 + t.n_bins * 16384 * 4
-              + n * 1024 * 4 * 6)
-    return nbytes, n * 16384 * (12 + 24 + 4 + 10)
+def _blockreduce_cost(n_ctu, n_bins, pred_bins, refine):
+    """Bytes and operations K2 needs: the int16 planes, the int32 original
+    CTUs and the per-block replication flags in; SATD (and five moments)
+    out.  Per sample about 12 integer operations for the SATD (difference,
+    butterflies, abs, sum) and, with moments, 38 more: Sobel 2 x 12,
+    replication selects ~4, products and sums 10."""
+    n = n_ctu * n_bins
+    nbytes = (n_ctu * pred_bins * 16384 * 2 + n_ctu * 16384 * 4
+              + n_bins * 1024 + n * 1024 * 4 * (6 if refine else 1))
+    return nbytes, n * 16384 * (50 if refine else 12)
 
 
-def time_kernels(tables, warp_stats, br_stats, launches):
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by) at the data-sheet rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _path_pair(mode):
+    """The main path's first 1080p pair of one mode: ``affine_gop`` seed 0,
+    POC 1 against the POC 0 reconstruction at QP 32.  Returns (fn, args)."""
+    from vvc_affine_tpu_torch import constants as C
+    from vvc_affine_tpu_torch import testing
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
+    orig, recon = testing.affine_gop(FW, FH, 2, seed=0)
+    specs = (ap.PlaneSpec(mode, 2, FW, FH), ap.PlaneSpec(mode, 3, FW, FH))
+    args = ap.stage_inputs_from_numpy(recon[0], orig[0], C.lambda_for(32, 1),
+                                      ap.zero_cpmvs(specs[0], "cpu"), None)
+    return ap.build_pair_stage(*specs), args
+
+
+def capture_path_launches():
+    """The arguments of every K1 and K2 launch of one 1080p pair per mode
+    on the main path's content, captured by wrapping the two bind
+    functions for the length of the pair.  Returns {(mode, kernel): [args,
+    ...]} with every tensor argument cloned."""
+    import torch
+
+    from vvc_affine_tpu_torch.ops import blockreduce as br
+    from vvc_affine_tpu_torch.ops import warp as wp
+
+    def keep(args):
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    path = {}
+    binds = {"warp": (wp, "bind_warp"),
+             "blockreduce": (br, "bind_reduce_blocks")}
+    for mode in ("full", "half"):
+        fn, args = _path_pair(mode)
+        saved = {k: getattr(mod, name) for k, (mod, name) in binds.items()}
+        for k, (mod, name) in binds.items():
+            path[mode, k] = []
+            setattr(mod, name, lambda *a, k=k: (path[mode, k].append(keep(a)),
+                                                saved[k](*a))[1])
+        try:
+            fn(*args)
+            torch.cuda.synchronize()
+        finally:
+            for k, (mod, name) in binds.items():
+                setattr(mod, name, saved[k])
+        _require(len(path[mode, "warp"]) == PAIR_LAUNCHES["warp"] // 2
+                 and len(path[mode, "blockreduce"])
+                 == PAIR_LAUNCHES["blockreduce"] // 2,
+                 f"{mode} pair: {len(path[mode, 'warp'])} K1 and "
+                 f"{len(path[mode, 'blockreduce'])} K2 launches")
+    return path
+
+
+def _path_bound(tables, mode, name, a):
+    """bound_ms of one captured launch, on its own inputs."""
+    t = tables[mode]
+    if name == "warp":
+        return _bound(*_warp_cost(t, float(a[9].float().mean())))[0]
+    pred, _, repl, refine = a
+    return _bound(*_blockreduce_cost(pred.shape[0], repl.shape[0],
+                                     pred.shape[1], refine))[0]
+
+
+def _path_runner(name, a, other=None, masks=None):
+    """A launcher of one captured launch and its outputs, bound once: the
+    port's kernel, or with ``other`` the kernel built from the source in
+    that directory (``kernels.source_dir``).  ``masks``: that K2 takes the
+    int32 per-sample border masks, as the first K2 design (commit 1852060)
+    did, in place of the per-block flags."""
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.ops import blockreduce as br
+    from vvc_affine_tpu_torch.ops import warp as wp
+
+    bind = wp.bind_warp if name == "warp" else br.bind_reduce_blocks
+    if other is None:
+        *outs, run = bind(*a)
+        return run, outs
+    with kernels.source_dir(other):
+        *outs, run = bind(*a)
+        if masks is not None:
+            pred, orig, repl, _ = a
+            run = kernels.bind("blockreduce", pred.device, *outs, pred, orig,
+                               masks, pred.shape[0], repl.shape[0],
+                               pred.shape[1])
+    return run, outs
+
+
+def _path_ms(name, launches, other=None, masks=None):
+    """Launch-weighted mean ms of a kernel over the captured launches."""
+    times = []
+    for a in launches:
+        run, _ = _path_runner(name, a, other, masks)
+        times.append(_median_ms(run, 5, 20))
+    return sum(times) / len(times), times
+
+
+def time_kernels(tables, warp_stats, br_stats, launches, path):
     """Phase 7: kernel and plain-version times at the 1080p shapes.
 
     ``ms`` times the bare launches of a kernel bound once to its inputs and
     preallocated outputs, back to back, so the device queue never drains:
-    the kernel's own time.  ``wrapper_ms`` times the whole wrapper (input
-    checks, output allocation, binding) as the engine calls it.  Returns
-    the FULL rows and, per (mode, kernel), the bound launcher for phase 8.
+    the kernel's own time, on the random fields of phases 3-4.  ``ms_path``
+    times the same way each launch that one 1080p pair of the main path
+    made (``capture_path_launches``) and takes their mean, beside
+    ``bound_path_ms``, the mean of those launches' bounds.  ``wrapper_ms``
+    times the whole wrapper (input checks, output allocation, binding) as
+    the engine calls it.  Returns the FULL rows and, per (mode, kernel),
+    the bound launcher for phase 8.
     """
+    from vvc_affine_tpu_torch import kernels
     from vvc_affine_tpu_torch.ops import blockreduce as br
     from vvc_affine_tpu_torch.ops import warp as wp
 
@@ -341,16 +574,20 @@ def time_kernels(tables, warp_stats, br_stats, launches):
         b = br_stats[mode]["args"]
         # the outputs stay referenced here while their launchers run
         bound[mode, "warp"] = wp.bind_warp(*a)
-        bound[mode, "blockreduce"] = br.bind_reduce_blocks(*b)
-        for name, fn, plain_fn, (nbytes, ops), err in (
+        bound[mode, "blockreduce"] = br.bind_reduce_blocks(b[0], b[1], b[4],
+                                                           b[3])
+        for name, fn, plain_fn, cost, err in (
                 ("warp", lambda a=a: wp.warp(*a), plain,
                  _warp_cost(t, warp_stats[mode]["act"]),
                  warp_stats[mode]["err"]),
                 ("blockreduce", lambda b=b: br.reduce_blocks(*b),
-                 lambda b=b: br.reduce_blocks_plain(*b), _blockreduce_cost(t),
+                 lambda b=b: br.reduce_blocks_plain(*b[:4]),
+                 _blockreduce_cost(t.n_ctus, t.n_bins, t.n_bins, True),
                  br_stats[mode]["err"])):
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / OPS_PER_S * 1e3
+            bound_ms, bound_by = _bound(*cost)
+            ms_path, per_launch = _path_ms(name, path[mode, name])
+            bounds = [_path_bound(tables, mode, name, x)
+                      for x in path[mode, name]]
             row = {
                 "name": name, "route": "cuda",
                 "source": f"vvc_affine_tpu_torch/csrc/{name}.cu",
@@ -359,15 +596,73 @@ def time_kernels(tables, warp_stats, br_stats, launches):
                 "ms": _median_ms(bound[mode, name][-1], 5, 20),
                 "wrapper_ms": _median_ms(fn),
                 "plain_ms": _median_ms(plain_fn, 3, 2),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None,
+                "ms_path": ms_path,
+                "bound_path_ms": sum(bounds) / len(bounds),
+                **kernels.attributes(name),
                 "shape": f"1080p {mode}: {t.n_ctus} CTUs x {t.n_bins} bins"}
+            per = {"kernel": name, "mode": mode, "ms": per_launch,
+                   "bound_ms": bounds}
+            if name == "warp":
+                per["global_path_share"] = [
+                    _global_share(t, x[5], x[6], x[9])
+                    for x in path[mode, name]]
+                row["global_path_share"] = (sum(per["global_path_share"])
+                                            / len(path[mode, name]))
+            else:
+                per["pred_bins"] = [x[0].shape[1] for x in path[mode, name]]
+                per["refine"] = [x[3] for x in path[mode, name]]
+            print(f"[path] {json.dumps(per)}", flush=True)
             if mode == "full":
                 rows.append(row)
             else:
                 print(f"[time] {json.dumps(row)}", flush=True)
     return rows, bound
+
+
+def ab_compare(src_dir, path, tables, k2_masks):
+    """--ab: this tree's K1 and K2 against the ``warp.cu`` and
+    ``blockreduce.cu`` in ``src_dir`` on the captured main-path launches,
+    each output first checked equal, then timed in turns (other, this,
+    this, other).  ``k2_masks``: the K2 there takes the border masks."""
+    import torch
+
+    from vvc_affine_tpu_torch import kernels
+
+    names = [n for n in ("warp", "blockreduce")
+             if os.path.exists(os.path.join(src_dir, f"{n}.cu"))]
+    _require(names, f"--ab: no warp.cu or blockreduce.cu in {src_dir}")
+    before = dict(kernels.build_log)
+    with kernels.source_dir(src_dir):
+        kernels.build(tuple(f"{n}.cu" for n in names))
+    for src, log in sorted(kernels.build_log.items()):
+        for line in log.splitlines() if log != before.get(src) else ():
+            if "registers" in line or "spill" in line:
+                print(f"[ab] {os.path.relpath(src)}: {line.strip()}",
+                      flush=True)
+    for mode in ("full", "half"):
+        for name in names:
+            masks = (tables[mode].border_packed
+                     if name == "blockreduce" and k2_masks else None)
+            for a in path[mode, name]:
+                got_run, got = _path_runner(name, a)
+                ref_run, ref = _path_runner(name, a, src_dir, masks)
+                got_run()
+                ref_run()
+                torch.cuda.synchronize()
+                if name == "warp":      # rows of inactive slabs unspecified
+                    rows = a[9].repeat_interleave(8, dim=-1).bool()[..., None]
+                    got, ref = [got[0] * rows], [ref[0] * rows]
+                for g, r in zip(got, ref):
+                    _require((g is None and r is None) or torch.equal(g, r),
+                             f"--ab {src_dir} {name} {mode}: outputs differ")
+            turns = [_path_ms(name, path[mode, name], *who)[0]
+                     for who in ((src_dir, masks), (), (), (src_dir, masks))]
+            print("[ab] " + json.dumps({
+                "mode": mode, "kernel": name,
+                "other": os.path.join(src_dir, f"{name}.cu"),
+                "turns_other_this_this_other_ms": turns}), flush=True)
 
 
 _KERNEL_SYMBOLS = {"warp": "warp_kernel", "blockreduce": "blockreduce_kernel"}
@@ -408,23 +703,14 @@ def profile_kernels(bound, n=20):
 
 def profile_pairs():
     """Phase 8b: where a 1080p 2CP->3CP pair's time goes, per mode, on the
-    main path's content (``affine_gop`` seed 0: POC 1 against the POC 0
-    reconstruction at QP 32, the main path's first pair): the pair's CUDA-event time under the profiler, the
-    device time of every kernel and copy in it, the device's idle share,
-    and the two hand-written kernels' launches and device time per launch."""
+    main path's content (``_path_pair``: the main path's first pair): the
+    pair's CUDA-event time under the profiler, the device time of every
+    kernel and copy in it, the device's idle share, and the two
+    hand-written kernels' launches and device time per launch."""
     import torch
 
-    from vvc_affine_tpu_torch import constants as C
-    from vvc_affine_tpu_torch import testing
-    from vvc_affine_tpu_torch.models import affine_plane as ap
-
-    orig, recon = testing.affine_gop(FW, FH, 2, seed=0)
     for mode in ("full", "half"):
-        specs = (ap.PlaneSpec(mode, 2, FW, FH), ap.PlaneSpec(mode, 3, FW, FH))
-        fn = ap.build_pair_stage(*specs)
-        args = ap.stage_inputs_from_numpy(recon[0], orig[0],
-                                          C.lambda_for(32, 1),
-                                          ap.zero_cpmvs(specs[0], "cpu"), None)
+        fn, args = _path_pair(mode)
         fn(*args)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -632,6 +918,16 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="add phase 8: torch.profiler device times of "
                              "the kernels and of a 1080p pair per mode")
+    parser.add_argument("--ab", metavar="DIR",
+                        help="add phase 7b: time the warp.cu and "
+                             "blockreduce.cu in DIR (another version of "
+                             "csrc/, same C entry points) against this "
+                             "tree's on the main path's launches, in turns")
+    parser.add_argument("--ab-k2-masks", action="store_true",
+                        help="the blockreduce.cu in DIR takes the int32 "
+                             "per-sample border masks (the first K2 "
+                             "design's interface, commit 1852060) "
+                             "where this tree's takes per-block flags")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -659,7 +955,11 @@ def main(argv=None) -> int:
     br_stats = check_blockreduce(tables, orig_pl, rng)
     check_card_vs_cpu()
     launches = run_main_path(tables["full"].n_ctus)
-    rows, bound = time_kernels(tables, warp_stats, br_stats, launches)
+    path = capture_path_launches()
+    rows, bound = time_kernels(tables, warp_stats, br_stats, launches, path)
+    if args.ab:
+        ab_compare(args.ab, path, tables, args.ab_k2_masks)
+    del path
     if args.profile:
         profile_kernels(bound)
         profile_pairs()

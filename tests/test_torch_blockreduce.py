@@ -103,3 +103,38 @@ def test_reduce_pred_matches_jax_unfused(mode, bins, refine):
             continue
         assert g.dtype == torch.int64
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode", ["full", "half"])
+def test_replication_flags_reproduce_sobel_replicated(mode):
+    """K2's per-block replication flags, derived from the JAX tables'
+    border masks, give on random planes the gradients of
+    ``_sobel_replicated`` (the per-sample mask rule) for every bin."""
+    jt = jap.build_tables(jap.PlaneSpec(mode, 2, FW, FH))
+    border = torch.from_numpy(jt.border_packed)
+    flags = tbr.replication_flags(border)
+    assert flags.dtype == torch.uint8 and flags.shape == (jt.n_bins, 32, 32)
+    assert int(flags.max()) <= 15 and flags.bool().any()
+    rng = np.random.default_rng(len(mode))
+    plane = torch.from_numpy(rng.integers(
+        0, 1024, size=(2, jt.n_bins, 128, 128)).astype(np.int32))
+    masks = [(border & bit) != 0 for bit in
+             (tbr.TOP, tbr.BOT, tbr.LEFT, tbr.RIGHT)]
+    none = torch.zeros_like(masks[0])
+    raw = tbr._sobel_replicated(plane, none, none, none, none)
+    want = tbr._sobel_replicated(plane, *masks)
+    for r, w in zip(raw, want):
+        assert not torch.equal(r, w)
+        assert torch.equal(tbr.replicate_blocks(r, flags), w)
+
+
+def test_replication_flags_refuse_masks_off_the_block_grid():
+    """A CU border off the 4-sample grid has sources outside the block:
+    the flags cannot express it, and the derivation refuses."""
+    border = torch.zeros((1, 128, 128), dtype=torch.int32)
+    border[0, 8:24, 10] = tbr.LEFT
+    with pytest.raises(ValueError, match="4x4"):
+        tbr.replication_flags(border)
+    border[0, 8:24, 10] = 0
+    border[0, 8:24, 8] = tbr.LEFT
+    assert int(tbr.replication_flags(border)[0, 2:6, 2].min()) == tbr.LEFT

@@ -291,3 +291,39 @@ def test_memory_report_shared_lines_match_jax():
     assert not any(k.startswith(("refpad", "per-CTU ref tiles"))
                    or "tap planes" in k for k in lines)
     assert lines["device bytes_in_use"] == "n/a"
+
+
+@pytest.mark.parametrize("entry", ["read_frames_csv", "stage_inputs",
+                                   "pipeline"])
+def test_samples_outside_10_bits_are_refused(tmp_path, entry):
+    """Every entry point that takes frames refuses a sample above 1023 (the
+    warp kernel packs samples as int16 pairs and is exact only for 10-bit
+    ones) and takes 1023 itself."""
+    from vvc_affine_tpu_torch.models import affine_plane as tap
+    from vvc_affine_tpu_torch.models import pipeline
+
+    fw = fh = 128
+    good = np.full((1, fh, fw), 1023, np.int32)
+    bad = good.copy()
+    bad[0, 5, 7] = 1024
+    if entry == "read_frames_csv":
+        def run(frames):
+            path = str(tmp_path / "f.csv")
+            frames_io.write_frames_csv(path, frames)
+            return frames_io.read_frames_csv(path, fw, fh, 1)
+    elif entry == "stage_inputs":
+        z = tap.zero_cpmvs(tap.PlaneSpec("full", 2, fw, fh), "cpu")
+
+        def run(frames):
+            return tap.stage_inputs_from_numpy(good[0], frames[0], 57.54, z,
+                                               "cpu")
+    else:
+        pipe = pipeline.AffineMEPipeline(pipeline.PipelineConfig(
+            fw, fh, 32, test_half=False, device="cpu"))
+
+        def run(frames):
+            return pipe.encode(good, frames, on_result=lambda r: None)
+    with pytest.raises(ValueError, match="1023"):
+        run(bad)
+    if entry != "pipeline":            # a whole encode is tested elsewhere
+        run(good)

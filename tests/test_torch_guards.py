@@ -7,6 +7,8 @@
 * The default CUDA device carries its index, so it equals the device of
   the tensors made on it.
 * Without ``nvcc`` the kernel build raises; nothing falls back.
+* ``kernels.source_dir`` builds another version of the sources, and only
+  inside its context.
 """
 
 import ast
@@ -101,3 +103,28 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.build()
+
+
+def test_kernel_source_dir_builds_the_other_sources(monkeypatch, tmp_path):
+    """Inside ``source_dir`` the build reads the other directory's source:
+    its library is keyed by that source (and, once built, not rebuilt:
+    nvcc is not even looked for); after the context the package's own
+    sources are read again."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "build_log", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    other = tmp_path / "other"
+    other.mkdir()
+    (other / "warp.cu").write_text("// another version of K1\n")
+    ours = kernels._so_path("warp.cu")
+    with kernels.source_dir(str(other)):
+        theirs = kernels._so_path("warp.cu")
+        assert theirs != ours
+        os.makedirs(os.path.dirname(theirs))
+        open(theirs, "wb").close()
+        assert kernels.build(("warp.cu",)) == 0.0
+    assert kernels._so_path("warp.cu") == ours
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build(("warp.cu",))
+    assert kernels.build_log == {}

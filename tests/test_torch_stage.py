@@ -22,6 +22,7 @@ from tests._child import _raise_stack
 from vvc_affine_tpu.models import affine_plane as jap
 from vvc_affine_tpu_torch import testing
 from vvc_affine_tpu_torch.models import affine_plane as tap
+from vvc_affine_tpu_torch.ops import blockreduce as tbr
 
 # One intra-op thread: the suite runs several pytest workers at once, and
 # torch's default pool (a thread per core in every worker) oversubscribes
@@ -113,7 +114,11 @@ def test_build_tables_match_jax(mode, fw, fh):
     assert tap.tables_from_numpy(jt._asdict(), "cpu")._asdict().keys() \
         == tt._asdict().keys()
     shared = [f for f in tap.PlaneTables._fields if f in jt._fields]
-    assert len(shared) == len(tap.PlaneTables._fields) - 1   # all but cls_t
+    # all but the port's own cls_t and repl (K2's replication flags)
+    assert len(shared) == len(tap.PlaneTables._fields) - 2
+    np.testing.assert_array_equal(
+        tt.repl.numpy(),
+        tbr.replication_flags(torch.from_numpy(jt.border_packed)).numpy())
     for f in shared:
         a, b = getattr(tt, f), getattr(jt, f)
         if isinstance(a, torch.Tensor):

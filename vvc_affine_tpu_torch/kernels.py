@@ -6,7 +6,10 @@ runs at first use, one ``nvcc`` process per source, all started together,
 and is keyed by a sha256 of the source and the flags: a library whose key
 does not match is never loaded.  The libraries live in ``_build/`` next to
 this file (listed in ``.gitignore``).  A failed build raises; nothing falls
-back to the plain versions.
+back to the plain versions.  ``source_dir`` builds and binds another
+version of ``csrc/`` instead, with the same C entry points, so that two
+versions can be timed in one process; ``attributes`` reads a loaded
+kernel's registers, local and shared memory.
 
 Every C entry point launches one kernel on the stream it is given and
 returns ``cudaGetLastError()``; the launcher that ``bind`` returns raises
@@ -16,6 +19,7 @@ kernel launch is counted.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,8 +52,9 @@ _KERNELS = {
 launches: Dict[str, int] = {name: 0 for name in _KERNELS}
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}      # source -> nvcc/ptxas output
+_libs: Dict[str, ctypes.CDLL] = {}  # source path -> loaded library
+build_log: Dict[str, str] = {}      # source path -> nvcc/ptxas output
+_src_dir = _CSRC                    # where sources are read (source_dir)
 
 
 def reset_launches() -> None:
@@ -67,8 +72,21 @@ def _nvcc() -> str:
     return path
 
 
+@contextlib.contextmanager
+def source_dir(path: str):
+    """Inside the context, build and bind kernels from the sources in
+    ``path`` (another version of ``csrc/`` with the same C entry points)
+    instead of this package's; their launches count as usual."""
+    global _src_dir
+    old, _src_dir = _src_dir, os.path.abspath(path)
+    try:
+        yield
+    finally:
+        _src_dir = old
+
+
 def _so_path(src: str) -> str:
-    with open(os.path.join(_CSRC, src), "rb") as f:
+    with open(os.path.join(_src_dir, src), "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{key.hexdigest()[:16]}.so")
@@ -93,14 +111,14 @@ def build(sources: Optional[tuple] = None) -> float:
         for src in todo:
             so = _so_path(src)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_src_dir, src)]
             procs.append((src, so, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
         for src, so, tmp, p in procs:
             out, _ = p.communicate(timeout=600)
-            build_log[src] = out
+            build_log[os.path.join(_src_dir, src)] = out
             if p.returncode != 0:
                 failed.append(f"{src}:\n{out}")
                 continue
@@ -110,19 +128,41 @@ def build(sources: Optional[tuple] = None) -> float:
     return time.perf_counter() - t0
 
 
-def _function(name: str):
-    src, sym, kinds = _KERNELS[name]
+def _library(src: str) -> ctypes.CDLL:
+    key = os.path.join(_src_dir, src)
     with _lock:
-        lib = _libs.get(src)
+        lib = _libs.get(key)
     if lib is None:
         build((src,))
         with _lock:
-            lib = _libs.setdefault(src, ctypes.CDLL(_so_path(src)))
-    fn = getattr(lib, sym)
+            lib = _libs.setdefault(key, ctypes.CDLL(_so_path(src)))
+    return lib
+
+
+def _function(name: str):
+    src, sym, kinds = _KERNELS[name]
+    fn = getattr(_library(src), sym)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
                    for k in kinds] + [ctypes.c_void_p]
     return fn
+
+
+def attributes(name: str) -> Dict[str, int]:
+    """Kernel ``name`` as loaded (``cudaFuncGetAttributes``, through its
+    source's ``<entry>_attributes`` function, which K1 and K2 have):
+    registers per thread, local memory per thread in bytes (the stack that
+    spills use; 0 means none) and static shared memory per block."""
+    src, sym, _ = _KERNELS[name]
+    fn = getattr(_library(src), sym + "_attributes")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    vals = (ctypes.c_int * 3)()
+    rc = fn(ctypes.cast(vals, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"kernel {name}: cudaFuncGetAttributes failed: "
+                           f"CUDA error {rc}")
+    return {"regs": vals[0], "spill_bytes": vals[1], "smem_bytes": vals[2]}
 
 
 def check(t: torch.Tensor, dtype, shape, name: str, device=None) -> None:
@@ -140,6 +180,13 @@ def check(t: torch.Tensor, dtype, shape, name: str, device=None) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary (the kernels'
+    16-byte loads need it)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data not 16-byte aligned")
 
 
 def bind(name: str, device: torch.device, *args):

@@ -45,6 +45,7 @@ from vvc_affine_tpu_torch.ops import cost as cost_ops
 from vvc_affine_tpu_torch.ops import mv as mv_ops
 from vvc_affine_tpu_torch.ops import solver as solver_ops
 from vvc_affine_tpu_torch.ops import warp as warp_ops
+from vvc_affine_tpu_torch.runtime.frames import check_samples
 from vvc_affine_tpu_torch.utils.bitmath import clamp
 
 NB = P.NB
@@ -85,6 +86,7 @@ class PlaneTables(NamedTuple):
     bins: Tuple[Tuple[int, ...], ...]  # disjoint-class packing (planes.bin_layout)
     bin_of: np.ndarray                 # int32 [n_cls] (host: loop structure)
     border_packed: torch.Tensor        # int32 [n_bins, 128, 128] bit-packed
+    repl: torch.Tensor                 # uint8 [n_bins, NB, NB] K2 block flags
     slab_active: torch.Tensor          # int32 [nCtus, n_bins, 16]
     strides: Tuple[int, ...]           # canonical per-class CU offsets
     cls: Tuple[P.ClassPlane, ...]
@@ -220,9 +222,10 @@ def tables_from_numpy(d: dict, device) -> PlaneTables:
     mode = {12: "full", 24: "half"}[int(d["n_cls"])]
     cls = P.plane_layout(mode)
     kw = {k: d[k] for k in PlaneTables._fields
-          if k not in _TENSOR_FIELDS + ("cls", "cls_t", "bin_of")}
+          if k not in _TENSOR_FIELDS + ("cls", "cls_t", "bin_of", "repl")}
     kw.update({k: torch.as_tensor(np.asarray(d[k]), device=device)
                for k in _TENSOR_FIELDS})
+    kw["repl"] = blockreduce_ops.replication_flags(kw["border_packed"])
     kw["bin_of"] = np.asarray(d["bin_of"], np.int32)
     kw["bins"] = tuple(tuple(int(c) for c in b) for b in d["bins"])
     kw["strides"] = tuple(int(s) for s in d["strides"])
@@ -331,7 +334,7 @@ def _reduce_pred(spec: PlaneSpec, t: PlaneTables, pred, orig_pl,
     with M/rhs None unless ``refine``.
     """
     satd_b, moms_b = blockreduce_ops.reduce_blocks(
-        pred, orig_pl, t.border_packed, refine)
+        pred, orig_pl, t.border_packed, refine, t.repl)
     satd_cols = []
     for ci, cp_tab in enumerate(t.cls):
         bi = int(t.bin_of[ci])
@@ -523,8 +526,11 @@ def zero_cpmvs(spec: PlaneSpec, device=None) -> torch.Tensor:
 
 
 def stage_inputs_from_numpy(ref_flat, orig_flat, lam, prev_cpmvs, device):
-    """Stage inputs on ``device`` from host values: int32 frames, a float32
-    0-d lambda (the RD cost multiplies in float32) and int32 CPMVs."""
+    """Stage inputs on ``device`` from host values: int32 frames of 10-bit
+    samples (``check_samples``), a float32 0-d lambda (the RD cost
+    multiplies in float32) and int32 CPMVs."""
+    check_samples(ref_flat, "ref_flat")
+    check_samples(orig_flat, "orig_flat")
     dev = resolve_device(device)
     return (torch.as_tensor(np.asarray(ref_flat, np.int32).reshape(-1),
                             device=dev),

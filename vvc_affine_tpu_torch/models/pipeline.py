@@ -25,6 +25,7 @@ import torch
 from vvc_affine_tpu_torch import constants as C
 from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.models import affine_plane
+from vvc_affine_tpu_torch.runtime.frames import check_samples
 from vvc_affine_tpu_torch.runtime.refmanager import ReferenceBuffer
 
 PRED_FULL_2CP, PRED_FULL_3CP, PRED_HALF_2CP, PRED_HALF_3CP = range(4)
@@ -146,8 +147,10 @@ class AffineMEPipeline:
         return out
 
     def _put(self, frame: np.ndarray) -> torch.Tensor:
-        """Stage a host frame on the device as int32 [fh*fw]; on the card
-        the copy is asynchronous from pinned memory."""
+        """Stage a host frame on the device as int32 [fh*fw] (10-bit
+        samples, ``check_samples``); on the card the copy is asynchronous
+        from pinned memory."""
+        check_samples(frame, "frame")
         host = torch.from_numpy(
             np.ascontiguousarray(frame, np.int32).reshape(-1))
         if self.device.type == "cuda":

@@ -20,6 +20,10 @@ moments int32 [nCtu, nBins, 5, NB, NB] (exact in int32: per-sample products
 * ``reduce_blocks``: the wrapper the engine calls.  On CUDA tensors it
   launches the hand-written kernel ``csrc/blockreduce.cu``; on CPU tensors
   it runs the plain version.
+* ``replication_flags``: the border replication of each bin reduced to four
+  flags per 4x4 block (the kernel's form of the masks), derived once per
+  PlaneTables; ``replicate_blocks`` applies them to raw gradients (their
+  plain mirror, which the tests hold against ``_sobel_replicated``).
 
 Outputs are defined everywhere, but the engine reads only the valid slots
 of in-frame CUs (every consumer masks at CU level).
@@ -79,6 +83,65 @@ def _sobel_replicated(plane, row_top, row_bot, col_left, col_right):
     return repl(gx), repl(gy)
 
 
+def replication_flags(border_packed):
+    """Per-block replication flags uint8 [nBins, NB, NB] from the masks.
+
+    The per-sample rule of ``_sobel_replicated``: a sample's gradient comes
+    from column x+1 (LEFT) or x-1 (RIGHT), then from row y+1 (TOP) or y-1
+    (BOT) by the mask at that column, clamped to the plane.  When every CU
+    is on the 4-sample grid and at least 4 wide and high (both layouts),
+    the sources stay inside the sample's 4x4 block and the rule reduces to
+    TOP (row 0 from row 1), BOT (row 3 from row 2), LEFT (column 0 from
+    column 1) and RIGHT (column 3 from column 2) per block.  Raises
+    ValueError for masks that do not reduce so.
+    """
+    m = border_packed.to(torch.int32)
+    n = m.shape[0]
+    i = torch.arange(128, dtype=torch.int64, device=m.device)
+    xs = torch.where((m & LEFT) != 0, (i + 1).clamp(max=127),
+                     torch.where((m & RIGHT) != 0, (i - 1).clamp(min=0), i))
+    m2 = torch.gather(m, 2, xs)
+    iy = i[:, None]
+    ys = torch.where((m2 & TOP) != 0, (iy + 1).clamp(max=127),
+                     torch.where((m2 & BOT) != 0, (iy - 1).clamp(min=0), iy))
+    dy = (ys - iy).reshape(n, NB, 4, NB, 4)
+    dx = (xs - i).reshape(n, NB, 4, NB, 4)
+    top, bot = dy[:, :, 0, :, 0] == 1, dy[:, :, 3, :, 0] == -1
+    left, right = dx[:, :, 0, :, 0] == 1, dx[:, :, 0, :, 3] == -1
+    zero = torch.zeros_like(top, dtype=torch.int64)
+    want_dy = torch.stack([top.long(), zero, zero, -bot.long()], dim=2)
+    want_dx = torch.stack([left.long(), zero, zero, -right.long()], dim=3)
+    if not (torch.equal(dy, want_dy[..., None].expand_as(dy))
+            and torch.equal(dx, want_dx[:, :, None].expand_as(dx))):
+        raise ValueError("border masks do not reduce to per-4x4-block "
+                         "replication flags")
+    flags = (top * TOP) | (bot * BOT) | (left * LEFT) | (right * RIGHT)
+    return flags.to(torch.uint8)
+
+
+def replicate_blocks(g, flags):
+    """Apply per-block replication flags to raw gradients.
+
+    g: int32 [..., nBins, 128, 128]; flags: uint8 [nBins, NB, NB].  Rows
+    first (row 0 from row 1 under TOP, row 3 from row 2 under BOT), then
+    columns (column 0 from column 1 under LEFT, column 3 from 2 under
+    RIGHT): what the kernel does in registers.
+    """
+    f = flags.to(torch.int32)
+    b = g.reshape(g.shape[:-2] + (NB, 4, NB, 4)).clone()
+
+    def bit(v):
+        return ((f & v) != 0)[:, :, None, :]             # [nBins, NB, 1, NB]
+
+    b[..., 0, :, :] = torch.where(bit(TOP)[..., 0, :, None],
+                                  b[..., 1, :, :], b[..., 0, :, :])
+    b[..., 3, :, :] = torch.where(bit(BOT)[..., 0, :, None],
+                                  b[..., 2, :, :], b[..., 3, :, :])
+    b[..., 0] = torch.where(bit(LEFT), b[..., 1], b[..., 0])
+    b[..., 3] = torch.where(bit(RIGHT), b[..., 2], b[..., 3])
+    return b.reshape(g.shape)
+
+
 def reduce_blocks_plain(pred, orig, border_packed, refine: bool):
     """Plain PyTorch version of K2 (same contract as ``reduce_blocks``)."""
     n_ctu = pred.shape[0]
@@ -101,37 +164,42 @@ def reduce_blocks_plain(pred, orig, border_packed, refine: bool):
     return satd, moments
 
 
-def reduce_blocks(pred, orig, border_packed, refine: bool):
+def reduce_blocks(pred, orig, border_packed, refine: bool, repl):
     """SATD (+ moments) of every (CTU, bin) plane, in block form.
 
     pred: int16 [nCtu, nBins | 1, 128, 128] (a length-1 bin axis broadcasts
     — the zero-motion iteration); orig: int32 [nCtu, 128, 128];
     border_packed: int32 [nBins, 128, 128] per-bin CU border masks
-    (TOP|BOT|LEFT|RIGHT bits).  Returns satd int32 [nCtu, nBins, NB, NB] and,
-    when ``refine``, moments int32 [nCtu, nBins, 5, NB, NB] (else None).
+    (TOP|BOT|LEFT|RIGHT bits), which the plain version reads; repl: their
+    ``replication_flags``, which the kernel reads (the engine passes the
+    PlaneTables' copies of both).  Returns satd int32 [nCtu, nBins, NB, NB]
+    and, when ``refine``, moments int32 [nCtu, nBins, 5, NB, NB] (else
+    None).
     """
     if pred.device.type == "cpu":
         return reduce_blocks_plain(pred, orig, border_packed, refine)
-    satd, moments, run = bind_reduce_blocks(pred, orig, border_packed, refine)
+    satd, moments, run = bind_reduce_blocks(pred, orig, repl, refine)
     run()
     return satd, moments
 
 
-def bind_reduce_blocks(pred, orig, border_packed, refine: bool):
-    """K2 bound to CUDA inputs (``reduce_blocks``' contract): returns the
-    output tensors and a callable that launches the kernel into them."""
+def bind_reduce_blocks(pred, orig, repl, refine: bool):
+    """K2 bound to CUDA inputs (``reduce_blocks``' contract, the masks
+    given as their replication flags ``repl``): returns the output tensors
+    and a callable that launches the kernel into them."""
     n_ctu, pred_bins = pred.shape[:2]
-    n_bins = border_packed.shape[0]
+    n_bins = repl.shape[0]
     if pred_bins not in (1, n_bins):
-        raise ValueError(f"pred has {pred_bins} bins, masks {n_bins}")
+        raise ValueError(f"pred has {pred_bins} bins, repl {n_bins}")
     dev = pred.device
     kernels.check(pred, torch.int16, (n_ctu, pred_bins, 128, 128), "pred")
     kernels.check(orig, torch.int32, (n_ctu, 128, 128), "orig", dev)
-    kernels.check(border_packed, torch.int32, (n_bins, 128, 128),
-                  "border_packed", dev)
+    kernels.check(repl, torch.uint8, (n_bins, NB, NB), "repl", dev)
+    kernels.check_aligned(pred, "pred")
+    kernels.check_aligned(orig, "orig")
     satd = torch.empty((n_ctu, n_bins, NB, NB), dtype=torch.int32, device=dev)
     moments = (torch.empty((n_ctu, n_bins, 5, NB, NB), dtype=torch.int32,
                            device=dev) if refine else None)
     return satd, moments, kernels.bind("blockreduce", dev, satd, moments,
-                                       pred, orig, border_packed, n_ctu,
-                                       n_bins, pred_bins)
+                                       pred, orig, repl, n_ctu, n_bins,
+                                       pred_bins)

@@ -12,6 +12,11 @@ aux_functions.cl:1096-1223).
 * ``warp``: the wrapper the engine calls.  On a CUDA tensor it launches the
   hand-written kernel ``csrc/warp.cu``; on a CPU tensor it runs the plain
   version.  Both return int16 planes (samples are 10-bit after the clip).
+* ``staging_plan``, ``warp_staged`` and ``filter_blocks_dp2a``: plain
+  mirrors of the kernel's design (the reference region each 32-row strip
+  stages, the rule that sends a block to the global path, and the filter
+  as two-way dot products of int16 pairs and int8 taps), which the tests
+  hold against ``warp_xla`` and ``filter_blocks``.
 
 Bit-exactness: both reproduce VTM's first/last-pass offset/shift scheme in
 int32 (aux_functions.cl:1121-1195), and the window clamp equals the
@@ -39,6 +44,16 @@ _SHIFT1 = C.IF_FILTER_PREC - 4                    # 2
 _OFF1 = -C.IF_INTERNAL_OFFS << _SHIFT1
 _SHIFT2 = C.IF_FILTER_PREC + 4                    # 10
 _OFF2 = (1 << (_SHIFT2 - 1)) + (C.IF_INTERNAL_OFFS << C.IF_FILTER_PREC)
+
+# K1's staging (csrc/warp.cu): a thread block takes a STRIP-row strip of a
+# CTU in ``group_bins`` consecutive bins and stages RH x RW reference
+# samples around the displacement of the strip's centre block in the
+# group's first bin, MY rows and MX columns of margin
+STRIP = 32
+MY = 6
+RH = STRIP + 5 + 2 * MY
+RW = 160
+MX = (RW - 128 - 5) // 2
 
 # bank columns 1..6 of every phase (columns 0 and 7 are zero)
 BANK6 = np.asarray(C.LUMA_FILTER_4x4, np.int16)[:, 1:7]     # [16, 6]
@@ -78,6 +93,147 @@ def filter_blocks(win, hc, vc):
         rows.append((acc + _OFF2) >> _SHIFT2)
     out = torch.stack(rows, dim=-2)                      # [..., 4, 4]
     return clamp(out, C.CLP_RNG_MIN, C.CLP_RNG_MAX)
+
+
+def _dp2a(a, b, acc, hi: bool):
+    """``__dp2a_lo`` / ``__dp2a_hi``: acc + the two signed 16-bit halves of
+    a times signed bytes 0, 1 (lo) or 2, 3 (hi) of b."""
+    def s16(x):
+        return ((x & 0xFFFF) ^ 0x8000) - 0x8000
+
+    def s8(x):
+        return ((x & 0xFF) ^ 0x80) - 0x80
+    b = b >> 16 if hi else b
+    return acc + s16(a) * s8(b) + s16(a >> 16) * s8(b >> 8)
+
+
+def _packed_taps(taps, shift):
+    """int8 taps [..., 6] at bytes shift .. shift + 5 of 8 (zeros around),
+    as the two words (bytes 0-3, 4-7) K1 keeps per phase and shift."""
+    pos = shift[..., None] + torch.arange(6)
+    b = torch.zeros(taps.shape[:-1] + (8,), dtype=torch.int64)
+    b = b.scatter(-1, pos, taps.to(torch.int64) & 0xFF)
+    sh = 8 * torch.arange(4)
+    return ((b[..., :4] << sh).sum(-1), (b[..., 4:] << sh).sum(-1))
+
+
+def filter_blocks_dp2a(win, hc, vc, par):
+    """``filter_blocks`` as K1 computes it with two-way dot products.
+
+    The window's row is held as five words of int16 sample pairs from
+    column -par on (par 0 or 1, per block: the parity of the window in the
+    staged row; the sample outside the window gets a zero tap); each 6-tap
+    sum is four dp2a against the taps shifted by the start's parity, and
+    the vertical pass pairs intermediate rows (2k, 2k + 1) in one word.
+    win: 10-bit samples [..., 9, 9]; hc/vc: [..., 6]; par: int [...].
+    """
+    w = win.to(torch.int64)
+    par = torch.as_tensor(par, dtype=torch.int64).expand(w.shape[:-2])
+    pad = torch.full(w.shape[:-1] + (1,), 1023, dtype=torch.int64)
+    row = torch.where(par[..., None, None] == 0, torch.cat([w, pad], -1),
+                      torch.cat([pad, w], -1))                # [..., 9, 10]
+    words = [row[..., 2 * q] | row[..., 2 * q + 1] << 16 for q in range(5)]
+    te = _packed_taps(hc, par)
+    to = _packed_taps(hc, par + 1)
+    tmp = []
+    for c in range(4):
+        b = c >> 1
+        t0, t1 = ((to if c & 1 else te)[i][..., None] for i in (0, 1))
+        acc = torch.full_like(words[0], _OFF1)
+        acc = _dp2a(words[b], t0, acc, False)
+        acc = _dp2a(words[b + 1], t0, acc, True)
+        acc = _dp2a(words[b + 2], t1, acc, False)
+        acc = _dp2a(words[b + 3], t1, acc, True)
+        tmp.append(acc >> _SHIFT1)                            # [..., 9]
+    tmp = torch.stack(tmp, -1)                                # [..., 9, 4]
+    pairs = [(tmp[..., 2 * k, :] & 0xFFFF)
+             | ((tmp[..., 2 * k + 1, :] & 0xFFFF) << 16 if k < 4 else 0)
+             for k in range(5)]                               # [..., 4]
+    zero = torch.zeros(par.shape, dtype=torch.int64)
+    ve, vo = _packed_taps(vc, zero), _packed_taps(vc, zero + 1)
+    rows = []
+    for o in range(4):
+        t = vo if o & 1 else ve
+        acc = torch.full_like(pairs[0], _OFF2)
+        for j in range(4 if o & 1 else 3):
+            acc = _dp2a(pairs[(o >> 1) + j], t[j >> 1][..., None], acc,
+                        bool(j & 1))
+        rows.append(acc >> _SHIFT2)
+    out = torch.stack(rows, dim=-2)                           # [..., 4, 4]
+    return clamp(out, C.CLP_RNG_MIN, C.CLP_RNG_MAX).to(torch.int32)
+
+
+def group_bins(n_bins: int) -> int:
+    """Bins per K1 thread block: half of them, rounded up."""
+    return (n_bins + 1) // 2
+
+
+def staging_plan(ctu_y, ctu_x, dy, dx):
+    """K1's staged regions and the blocks that read them.
+
+    Returns (ry0, rx0) int32 [nCtu, nBins, 4], the frame coordinates of
+    the staged region each strip of each bin reads (RH x RW samples,
+    clamped to the frame when read; shared by the ``group_bins`` bins of a
+    group),
+    and ``staged`` bool [nCtu, nBins, NB, NB]: True where the block's 9x9
+    window lies inside its strip's region; the others read global memory.
+    """
+    n_ctu, n_bins = dy.shape[:2]
+    g = group_bins(n_bins)
+    first = torch.arange(n_bins, device=dy.device) // g * g
+    cy = dy.reshape(n_ctu, n_bins, 4, 8, NB)[:, first, :, 4, 16]
+    cx = dx.reshape(n_ctu, n_bins, 4, 8, NB)[:, first, :, 4, 16]
+    strip0 = STRIP * torch.arange(4, dtype=torch.int32, device=dy.device)
+    ry0 = ctu_y[:, None, None] + strip0 + cy - 2 - MY
+    rx0 = ctu_x[:, None, None] + cx - 2 - MX
+    blk = 4 * torch.arange(NB, dtype=torch.int32, device=dy.device)
+    wy = ((blk % STRIP)[:, None] + dy).reshape(n_ctu, n_bins, 4, 8, NB) \
+        - cy[..., None, None] + MY
+    wx = (blk + dx).reshape(n_ctu, n_bins, 4, 8, NB) \
+        - cx[..., None, None] + MX
+    staged = (wy >= 0) & (wy <= RH - 9) & (wx >= 0) & (wx <= RW - 9)
+    return ry0, rx0, staged.reshape(n_ctu, n_bins, NB, NB)
+
+
+def warp_staged(ref_flat, frame_w: int, frame_h: int, ctu_y, ctu_x,
+                dy, dx, hc, vc):
+    """``warp_xla`` through K1's data flow: each strip's region staged with
+    clamped coordinates, staged blocks' windows read from it, the others
+    from the frame with clamped coordinates (``staging_plan``)."""
+    n_ctu, n_bins = dy.shape[:2]
+    dev = ref_flat.device
+    ry0, rx0, staged = staging_plan(ctu_y, ctu_x, dy, dx)
+    ar = lambda n: torch.arange(n, dtype=torch.int32, device=dev)
+    ys = clamp(ry0[..., None] + ar(RH), 0, frame_h - 1)   # [.., 4, RH]
+    xs = clamp(rx0[..., None] + ar(RW), 0, frame_w - 1)   # [.., 4, RW]
+    region = ref_flat[(ys[..., :, None] * frame_w
+                       + xs[..., None, :]).long()]        # [.., 4, RH, RW]
+    # window origins: in the region, and in the frame
+    by = 4 * ar(NB)[:, None].expand(NB, NB)
+    bx = 4 * ar(NB)[None, :].expand(NB, NB)
+    strip = (by // STRIP).expand(n_ctu, n_bins, NB, NB)
+    wy = by + dy - ry0.gather(2, strip.reshape(n_ctu, n_bins, -1)) \
+        .reshape(strip.shape) + ctu_y[:, None, None, None] - 2
+    wx = bx + dx - rx0.gather(2, strip.reshape(n_ctu, n_bins, -1)) \
+        .reshape(strip.shape) + ctu_x[:, None, None, None] - 2
+    taps = ar(9)
+    ry = clamp(wy[..., None] + taps, 0, RH - 1)
+    rx = clamp(wx[..., None] + taps, 0, RW - 1)
+    flat = region.reshape(n_ctu, n_bins, 4 * RH * RW)
+    ridx = (strip[..., None, None] * RH + ry[..., :, None]) * RW \
+        + rx[..., None, :]                              # [.., NB, NB, 9, 9]
+    from_region = flat.gather(2, ridx.reshape(n_ctu, n_bins, -1).long()) \
+        .reshape(ridx.shape)
+    gy = clamp(ctu_y[:, None, None, None] + by + dy - 2, -2 ** 30, 2 ** 30)
+    gx = clamp(ctu_x[:, None, None, None] + bx + dx - 2, -2 ** 30, 2 ** 30)
+    gys = clamp(gy[..., None] + taps, 0, frame_h - 1)
+    gxs = clamp(gx[..., None] + taps, 0, frame_w - 1)
+    from_frame = ref_flat[(gys[..., :, None] * frame_w
+                           + gxs[..., None, :]).long()]
+    win = torch.where(staged[..., None, None], from_region, from_frame)
+    pred = filter_blocks(win, torch.movedim(hc, 2, -1),
+                         torch.movedim(vc, 2, -1))      # [.., NB, NB, 4, 4]
+    return pred.transpose(3, 4).reshape(n_ctu, n_bins, 128, 128)
 
 
 def warp_xla(ref_flat, frame_w: int, frame_h: int, ctu_y, ctu_x,
@@ -134,8 +290,11 @@ def warp(ref_flat, frame_w: int, frame_h: int, ctu_y, ctu_x, dy, dx, fx, fy,
 
 def bind_warp(ref_flat, frame_w: int, frame_h: int, ctu_y, ctu_x, dy, dx,
               fx, fy, slab_active):
-    """K1 bound to CUDA inputs (``warp``'s contract): returns the output
-    tensor and a callable that launches the kernel into it."""
+    """K1 bound to CUDA inputs (``warp``'s contract; the kernel packs
+    reference samples as int16 pairs, so they must lie in [0, 1023], which
+    every entry point that takes frames enforces with
+    ``runtime.frames.check_samples``): returns the output tensor and a
+    callable that launches the kernel into it."""
     n_ctu, n_bins = dy.shape[:2]
     kernels.check(ref_flat, torch.int32, (frame_h * frame_w,), "ref_flat")
     kernels.check(ctu_y, torch.int32, (n_ctu,), "ctu_y", ref_flat.device)

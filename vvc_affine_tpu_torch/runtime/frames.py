@@ -10,12 +10,29 @@ from __future__ import annotations
 
 import numpy as np
 
+from vvc_affine_tpu_torch import constants as C
+
+
+def check_samples(frames, what: str) -> None:
+    """Raise ValueError unless every sample lies in [0, 1023].
+
+    The engine takes 10-bit luma, as the reference encoder does
+    (CLP_RNG_MAX): the warp kernel packs reference samples as int16 pairs
+    and is exact only there.  Every entry point that takes host frames
+    calls this once per frame.
+    """
+    a = np.asarray(frames)
+    if a.size and (a.min() < C.CLP_RNG_MIN or a.max() > C.CLP_RNG_MAX):
+        raise ValueError(f"{what}: sample value out of "
+                         f"[{C.CLP_RNG_MIN}, {C.CLP_RNG_MAX}] (10-bit)")
+
 
 def read_frames_csv(path: str, frame_w: int, frame_h: int, n_frames: int) -> np.ndarray:
     """Parse a concatenated-frames CSV -> uint16 [n_frames, frame_h, frame_w].
 
     Uses pandas' C parser when pandas is installed, else a line-by-line
-    NumPy parser.  Out-of-range samples and short files raise.
+    NumPy parser.  Samples outside [0, 1023] (``check_samples``) and short
+    files raise.
     """
     rows_needed = frame_h * n_frames
     try:
@@ -40,9 +57,7 @@ def read_frames_csv(path: str, frame_w: int, frame_h: int, n_frames: int) -> np.
                 vals[r] = np.array(
                     line.rstrip("\n").rstrip(",").split(",")[:frame_w],
                     np.int64)
-    # loud out-of-range rejection (no silent uint16 truncation)
-    if vals.size and (vals.min() < 0 or vals.max() > 65535):
-        raise ValueError(f"{path}: sample value out of [0, 65535]")
+    check_samples(vals, path)
     if vals.shape[0] < rows_needed:
         raise ValueError(
             f"{path}: {vals.shape[0]} rows, need {rows_needed} "
