@@ -6,7 +6,8 @@
 Phases, in order (any failure exits non-zero before the result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build every kernel from ``vvc_affine_tpu_torch/csrc`` with nvcc;
+2. build every kernel from ``vvc_affine_tpu_torch/csrc`` with nvcc, and the
+   native runtime library (``native/``) with g++;
 3. K1 (warp) against its plain version ``warp_xla`` at 1080p shapes, both
    alignment modes, on every field family: random phases and displacements
    up to |d| = 300, a smooth zoom and rotation (CPMVs through the engine's
@@ -53,7 +54,22 @@ Phases, in order (any failure exits non-zero before the result line):
    equal the uninterrupted run's byte for byte; a run with --DeviceTrace and
    --MemoryReport, whose trace must vary and whose trace and report must
    show a peak above the bytes the earlier phases left allocated.  Each
-   run's K1/K2 launches are counted as in phase 6.
+   run's K1/K2 launches are counted as in phase 6;
+11. the gather engine (``--Engine gather``, plain PyTorch ops, no kernel of
+   its own): (a) its ops on the card against the CPU, tolerance 0 —
+   ``predict_subblocks`` on windows at and past each frame edge with all
+   16x16 phase pairs, ``filter_windows(last=False)``, ``sobel_cu``,
+   ``gradient_moments`` on extreme gradients and ``assemble_system``;
+   (b) one 2CP->3CP chain per mode at 416x240: the gather engine on the
+   card (default device), on the CPU and the plane engine on the card,
+   bit-identical; (c) ``cli.main --Engine gather`` at 1920x1080, -f 2,
+   -q 32 on phase 6's CSVs, with every kernel's launch count 0, and every
+   decision log byte-identical to phase 6's plane-engine logs (a
+   ``gather_path`` JSON line with the CUDA-event seconds of each of the 12
+   stages; with ``--profile``, ``[profile]`` lines with the device
+   launches and busy time of one FULL and one HALF 2CP stage); (d) phase
+   6's two CSVs parsed by the native library and by the plain Python
+   parser, equal arrays, both times on ``[native]`` lines.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -124,11 +140,16 @@ def card_info():
 
 
 def build_kernels():
-    """Phase 2: nvcc every source; print the seconds and ptxas' summary."""
-    from vvc_affine_tpu_torch import kernels
+    """Phase 2: nvcc every source and g++ the native runtime library;
+    print the seconds and ptxas' summary."""
+    from vvc_affine_tpu_torch import kernels, native
 
     build_s = kernels.build()
     print(f"[build] {build_s:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"[build] native runtime library {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for src, log in sorted(kernels.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -370,8 +391,22 @@ def check_card_vs_cpu():
               f"(costs int64, CPMVs int32)", flush=True)
 
 
-def run_main_path(n_ctu):
-    """Phase 6: the CLI at 1080p; returns the launch counts of the run."""
+def _log_bytes(prefix):
+    """name (without the prefix) -> bytes of every decision log"""
+    from vvc_affine_tpu_torch.runtime import reporting
+
+    out = {}
+    for pred in range(4):
+        for path in reporting.log_paths(prefix, pred):
+            with open(path, "rb") as f:
+                out[path[len(prefix):]] = f.read()
+    return out
+
+
+def run_main_path(n_ctu, tmp):
+    """Phase 6: the CLI at 1080p, with its CSVs and logs in ``tmp``.
+    Returns the launch counts of the run, the two CSV paths and the bytes
+    of every decision log."""
     import numpy as np
     import torch
 
@@ -379,41 +414,40 @@ def run_main_path(n_ctu):
     from vvc_affine_tpu_torch.runtime import frames as frames_io
     from vvc_affine_tpu_torch.runtime import reporting
 
-    with tempfile.TemporaryDirectory() as tmp:
-        orig_g, recon_g = testing.affine_gop(FW, FH, 2, seed=0)
-        opath, rpath = (os.path.join(tmp, f) for f in ("orig.csv", "ref.csv"))
-        frames_io.write_frames_csv(opath, orig_g)
-        frames_io.write_frames_csv(rpath, recon_g)
-        prefix = os.path.join(tmp, "log")
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.time()
-        rc = cli.main(["-f", "2", "-s", f"{FW}x{FH}", "-q", "32",
-                       "-o", opath, "-r", rpath, "-l", prefix])
-        torch.cuda.synchronize()
-        cli_s = time.time() - t0
-        launches = dict(kernels.launches)
-        _require(rc == 0, f"cli.main returned {rc}")
-        _require(launches == _path_launches(
-            {k: 3 * v for k, v in PAIR_LAUNCHES.items()}),
-                 f"main path launches {launches}, want warp 60 and "
-                 f"blockreduce 66")
-        n_rows = 0
-        for pred in range(4):
-            for path in reporting.log_paths(prefix, pred):
-                a = np.loadtxt(path, delimiter=",", skiprows=1,
-                               dtype=np.int64, ndmin=2)
-                _require(a.shape[1] == 14, f"{path}: {a.shape[1]} columns")
-                _require(((a[:, 7] >= 0) & (a[:, 7] < 1 << 62)).all(),
-                         f"{path}: cost out of range")
-                _require((np.abs(a[:, 8:]) <= 1 << 17).all(),
-                         f"{path}: CPMV out of range")
-                n_rows += a.shape[0]
-        want_rows = 3 * n_ctu * 2 * (201 + 284)    # 3 frame-refs
-        _require(n_rows == want_rows, f"{n_rows} log rows, want {want_rows}")
+    orig_g, recon_g = testing.affine_gop(FW, FH, 2, seed=0)
+    opath, rpath = (os.path.join(tmp, f) for f in ("orig.csv", "ref.csv"))
+    frames_io.write_frames_csv(opath, orig_g)
+    frames_io.write_frames_csv(rpath, recon_g)
+    prefix = os.path.join(tmp, "log")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    rc = cli.main(["-f", "2", "-s", f"{FW}x{FH}", "-q", "32",
+                   "-o", opath, "-r", rpath, "-l", prefix])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches = dict(kernels.launches)
+    _require(rc == 0, f"cli.main returned {rc}")
+    _require(launches == _path_launches(
+        {k: 3 * v for k, v in PAIR_LAUNCHES.items()}),
+             f"main path launches {launches}, want warp 60 and "
+             f"blockreduce 66")
+    n_rows = 0
+    for pred in range(4):
+        for path in reporting.log_paths(prefix, pred):
+            a = np.loadtxt(path, delimiter=",", skiprows=1,
+                           dtype=np.int64, ndmin=2)
+            _require(a.shape[1] == 14, f"{path}: {a.shape[1]} columns")
+            _require(((a[:, 7] >= 0) & (a[:, 7] < 1 << 62)).all(),
+                     f"{path}: cost out of range")
+            _require((np.abs(a[:, 8:]) <= 1 << 17).all(),
+                     f"{path}: CPMV out of range")
+            n_rows += a.shape[0]
+    want_rows = 3 * n_ctu * 2 * (201 + 284)    # 3 frame-refs
+    _require(n_rows == want_rows, f"{n_rows} log rows, want {want_rows}")
     print(json.dumps({"main_path": {"cli_s": cli_s, "launches": launches,
                                     "log_rows": n_rows}}), flush=True)
-    return launches
+    return launches, (opath, rpath), _log_bytes(prefix)
 
 
 def _path_launches(counts):
@@ -454,18 +488,27 @@ def _bound(nbytes, ops):
                                  else "operations")
 
 
-def _path_pair(mode):
-    """The main path's first 1080p pair of one mode: ``affine_gop`` seed 0,
-    POC 1 against the POC 0 reconstruction at QP 32.  Returns (fn, args)."""
+def _path_inputs(mode):
+    """The main path's first 1080p stage inputs: ``affine_gop`` seed 0, POC
+    1 against the POC 0 reconstruction at QP 32, zero 2CP CPMVs, on the
+    default device."""
     from vvc_affine_tpu_torch import constants as C
     from vvc_affine_tpu_torch import testing
     from vvc_affine_tpu_torch.models import affine_plane as ap
 
     orig, recon = testing.affine_gop(FW, FH, 2, seed=0)
+    z = ap.zero_cpmvs(ap.PlaneSpec(mode, 2, FW, FH), "cpu")
+    return ap.stage_inputs_from_numpy(recon[0], orig[0], C.lambda_for(32, 1),
+                                      z, None)
+
+
+def _path_pair(mode):
+    """The main path's first 1080p pair of one mode (``_path_inputs``).
+    Returns (fn, args)."""
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
     specs = (ap.PlaneSpec(mode, 2, FW, FH), ap.PlaneSpec(mode, 3, FW, FH))
-    args = ap.stage_inputs_from_numpy(recon[0], orig[0], C.lambda_for(32, 1),
-                                      ap.zero_cpmvs(specs[0], "cpu"), None)
-    return ap.build_pair_stage(*specs), args
+    return ap.build_pair_stage(*specs), _path_inputs(mode)
 
 
 def capture_path_launches():
@@ -849,15 +892,6 @@ def run_single_card_flags():
                  f"cli.main {argv}: launches {launches}, want {want}")
         return buf.getvalue(), want
 
-    def logs(prefix):
-        """name (without the prefix) -> bytes of every decision log"""
-        out = {}
-        for pred in range(4):
-            for path in reporting.log_paths(prefix, pred):
-                with open(path, "rb") as f:
-                    out[path[len(prefix):]] = f.read()
-        return out
-
     summary = {}
     with tempfile.TemporaryDirectory() as tmp:
         orig_g, recon_g = testing.affine_gop(SMALL_W, SMALL_H, 2, seed=1)
@@ -872,7 +906,7 @@ def run_single_card_flags():
         ckpt = ["-l", b, "--CheckpointDir", os.path.join(tmp, "ckpt")]
         _, summary["checkpoint_f1"] = drive(["-f", "1"] + base + ckpt, 1)
         _, summary["resumed_f2"] = drive(["-f", "2"] + base + ckpt, 2)
-        want, got = logs(a), logs(b)
+        want, got = _log_bytes(a), _log_bytes(b)
         _require(len(want) == sum(len(reporting.log_paths("x", p))
                                   for p in range(4)), "missing logs")
         _require(got == want, "resumed run's logs differ from the "
@@ -909,6 +943,225 @@ def run_single_card_flags():
     print(json.dumps({"single_card_flags": summary}), flush=True)
 
 
+def _same(name, got, want):
+    """Require a card tensor equal to a CPU tensor, dtype included."""
+    import torch
+
+    _require(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+             f"{name}: card differs from CPU ({got.dtype}, {want.dtype})")
+
+
+def check_gather_ops():
+    """Phase 11a: the gather engine's ops on the card against the CPU,
+    tolerance 0."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch import testing
+    from vvc_affine_tpu_torch.ops import equations as eq
+    from vvc_affine_tpu_torch.ops import gradient as gr
+    from vvc_affine_tpu_torch.ops import interp as ip
+
+    dev, cpu = torch.device("cuda:0"), torch.device("cpu")
+    rng = np.random.default_rng(11)
+
+    def both(*arrays):
+        return [[torch.as_tensor(a, device=d) for a in arrays]
+                for d in (dev, cpu)]
+
+    # sub-blocks at and next to each frame edge, integer motion that keeps
+    # the window inside or pulls it up to 24 samples past the edge, and
+    # every one of the 16x16 phase pairs
+    ref = testing.affine_gop(FW, FH, 1, seed=3)[1][0].astype(np.int32)
+    edge_x = [0, 4, FW // 2, FW - 8, FW - 4]
+    edge_y = [0, 4, FH // 2, FH - 8, FH - 4]
+    shift = [-24, -3, 0, 3, 24]
+    bx, by, mx, my = (a.reshape(-1, 1).astype(np.int32) for a in np.meshgrid(
+        edge_x, edge_y, shift, shift, indexing="ij"))
+    ph = np.arange(256, dtype=np.int32)
+    mvx = mx * 16 + (ph % 16)[None, :]
+    mvy = my * 16 + (ph // 16)[None, :]
+    (g, c) = both(ref.ravel(), bx, by, mvx, mvy)
+    _same("predict_subblocks", ip.predict_subblocks(g[0], FW, FH, *g[1:]),
+          ip.predict_subblocks(c[0], FW, FH, *c[1:]))
+    n_pred = mvx.size
+
+    win = rng.integers(0, 1024, (256, 11, 11)).astype(np.int32)
+    win[:2] = 1023
+    win[2:4, ::2, ::2] = 0                       # checkerboards of extremes
+    (g, c) = both(win, ph % 16, ph // 16)
+    for last in (False, True):
+        _same(f"filter_windows(last={last})", ip.filter_windows(*g, last),
+              ip.filter_windows(*c, last))
+
+    for h, w in ((16, 16), (32, 64), (128, 128)):
+        pl = rng.integers(0, 1024, (64, h, w)).astype(np.int32)
+        (g, c) = both(pl)
+        got, want = gr.sobel_cu(*g), gr.sobel_cu(*c)
+        for k in range(2):
+            _same(f"sobel_cu {h}x{w}", got[k], want[k])
+
+    lim = 1 << 27                                # |moment| < 2^60: no wrap
+    grads = rng.integers(-lim, lim, (3, 16, 32, 64)).astype(np.int32)
+    grads[:, 0] = lim - 1
+    grads[1, 1] = -lim
+    (g, c) = both(*grads)
+    mg, mc = eq.gradient_moments(*g), eq.gradient_moments(*c)
+    for k in range(5):
+        _same(f"gradient_moments[{k}]", mg[k], mc[k])
+    for n_cp in (2, 3):
+        fac = eq.subblock_factors(8, 16, n_cp)
+        got = eq.assemble_system(*mg, eq.factors_to(fac, dev))
+        want = eq.assemble_system(*mc, eq.factors_to(fac, cpu))
+        _same(f"assemble_system M {n_cp}CP", got[0], want[0])
+        _same(f"assemble_system rhs {n_cp}CP", got[1], want[1])
+    print(f"[gather] ops card == CPU: predict_subblocks on {n_pred} "
+          f"sub-blocks at and past every frame edge (all 256 phases), "
+          f"filter_windows (last=False/True), sobel_cu, gradient_moments, "
+          f"assemble_system (2CP/3CP)", flush=True)
+
+
+def check_gather_pair():
+    """Phase 11b: one 2CP->3CP chain per mode at 416x240 — the gather
+    engine on the card (default device) and on the CPU, and the plane
+    engine on the card, all bit-identical; the card's gather chain
+    launches no kernel."""
+    import torch
+
+    from vvc_affine_tpu_torch import kernels, testing
+    from vvc_affine_tpu_torch.models import affine_me as me
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
+    o_np, r_np = testing.affine_gop(SMALL_W, SMALL_H, 1, seed=5)
+    for mode in ("full", "half"):
+        outs = {}
+        for name, d in (("gather card", None),
+                        ("gather CPU", torch.device("cpu")),
+                        ("plane card", None)):
+            z = ap.zero_cpmvs(ap.PlaneSpec(mode, 2, SMALL_W, SMALL_H), "cpu")
+            args = ap.stage_inputs_from_numpy(r_np[0], o_np[0], 57.54, z, d)
+            kernels.reset_launches()
+            if name.startswith("gather"):
+                s2, s3 = (me.build_stage(me.StageSpec(mode, n, SMALL_W,
+                                                      SMALL_H), d)
+                          for n in (2, 3))
+                c2, p2 = s2(*args)
+                out = (c2, p2, *s3(*args[:3], p2))
+                _require(not any(kernels.launches.values()),
+                         f"{name}: kernel launches {kernels.launches}")
+            else:
+                out = ap.build_pair_stage(
+                    ap.PlaneSpec(mode, 2, SMALL_W, SMALL_H),
+                    ap.PlaneSpec(mode, 3, SMALL_W, SMALL_H), device=d)(*args)
+            _require(out[0].device.type == ("cpu" if d else "cuda"),
+                     f"{name}: outputs on {out[0].device}")
+            _require([o.dtype for o in out] == [torch.int64, torch.int32] * 2,
+                     f"{name}: dtypes {[o.dtype for o in out]}")
+            outs[name] = [o.cpu() for o in out]
+        for name in ("gather CPU", "plane card"):
+            _require(all(torch.equal(a, b) for a, b in
+                         zip(outs["gather card"], outs[name])),
+                     f"{mode} pair: gather card differs from {name}")
+        print(f"[gather] {mode} pair at {SMALL_W}x{SMALL_H}: gather card == "
+              f"gather CPU == plane card (costs int64, CPMVs int32)",
+              flush=True)
+
+
+def run_gather_path(csvs, plane_logs, profile):
+    """Phase 11c: ``cli.main --Engine gather`` at 1080p -f 2 on phase 6's
+    CSVs: no kernel launch, phase 6's decision logs byte for byte, the
+    CUDA-event seconds of each stage (the CLI's timing report)."""
+    import torch
+
+    from vvc_affine_tpu_torch import cli, kernels
+
+    opath, rpath = csvs
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "gather")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-f", "2", "-s", f"{FW}x{FH}", "-q", "32",
+                           "-o", opath, "-r", rpath, "-l", prefix,
+                           "--Engine", "gather"])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        launches = dict(kernels.launches)
+        _require(rc == 0, f"cli.main --Engine gather returned {rc}")
+        _require(not any(launches.values()),
+                 f"gather path launched kernels: {launches}")
+        logs = _log_bytes(prefix)
+    _require(sorted(logs) == sorted(plane_logs), "gather path: log names "
+             "differ from the plane path's")
+    differ = [k for k in logs if logs[k] != plane_logs[k]]
+    _require(not differ, f"gather path: logs differ from the plane path's: "
+                         f"{differ}")
+    # the timing report's per-dispatch lines: "EXEC <pred> POC p ref r,<ns>"
+    stage_s = {ln.rsplit(",", 1)[0]: float(ln.rsplit(",", 1)[1]) / 1e9
+               for ln in buf.getvalue().splitlines()
+               if ln.startswith("EXEC ")}
+    _require(len(stage_s) == 12, f"{len(stage_s)} timed stages, want 12")
+    print(json.dumps({"gather_path": {
+        "cli_s": cli_s, "launches": launches, "logs_identical": len(logs),
+        "stage_s": stage_s}}), flush=True)
+    if profile:
+        profile_gather_stages()
+
+
+def profile_gather_stages():
+    """Phase 11c with ``--profile``: the device launches and device-busy
+    time of one FULL and one HALF 2CP gather stage on the main path's
+    first inputs."""
+    import torch
+
+    from vvc_affine_tpu_torch.models import affine_me as me
+
+    for mode in ("full", "half"):
+        fn = me.build_stage(me.StageSpec(mode, 2, FW, FH))
+        args = _path_inputs(mode)
+        fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def stage():
+            start.record()
+            fn(*args)
+            end.record()
+
+        events = _device_events(stage)
+        stage_ms = start.elapsed_time(end)
+        busy_ms = sum(ev.device_time_total for ev in events) / 1e3
+        print("[profile] " + json.dumps({
+            "gather_stage": f"{mode} 2CP", "frame": f"{FW}x{FH}",
+            "stage_ms": stage_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / stage_ms,
+            "device_launches": len(events)}), flush=True)
+
+
+def check_native_ingest(csvs):
+    """Phase 11d: phase 6's CSVs through the native parser and the plain
+    Python parser: equal arrays; both times."""
+    import numpy as np
+
+    from vvc_affine_tpu_torch.runtime import frames as frames_io
+
+    for path in csvs:
+        t0 = time.perf_counter()
+        fast = frames_io.read_frames_csv(path, FW, FH, 2)
+        t1 = time.perf_counter()
+        plain = frames_io.read_frames_csv_plain(path, FW, FH, 2)
+        t2 = time.perf_counter()
+        _require(fast.dtype == plain.dtype and np.array_equal(fast, plain),
+                 f"{path}: native parse differs from the plain parser")
+        print("[native] " + json.dumps({
+            "csv": os.path.basename(path), "bytes": os.path.getsize(path),
+            "samples": int(fast.size), "native_s": t1 - t0,
+            "plain_s": t2 - t1}), flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -917,7 +1170,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="add phase 8: torch.profiler device times of "
-                             "the kernels and of a 1080p pair per mode")
+                             "the kernels and of a 1080p pair per mode; and "
+                             "in phase 11 of a 1080p gather stage per mode")
     parser.add_argument("--ab", metavar="DIR",
                         help="add phase 7b: time the warp.cu and "
                              "blockreduce.cu in DIR (another version of "
@@ -954,17 +1208,25 @@ def main(argv=None) -> int:
     warp_stats = check_warp(tables, ref, rng)
     br_stats = check_blockreduce(tables, orig_pl, rng)
     check_card_vs_cpu()
-    launches = run_main_path(tables["full"].n_ctus)
-    path = capture_path_launches()
-    rows, bound = time_kernels(tables, warp_stats, br_stats, launches, path)
-    if args.ab:
-        ab_compare(args.ab, path, tables, args.ab_k2_masks)
-    del path
-    if args.profile:
-        profile_kernels(bound)
-        profile_pairs()
-    rows += check_probes()
-    run_single_card_flags()
+    with tempfile.TemporaryDirectory() as work:
+        launches, csvs, plane_logs = run_main_path(tables["full"].n_ctus,
+                                                   work)
+        path = capture_path_launches()
+        rows, bound = time_kernels(tables, warp_stats, br_stats, launches,
+                                   path)
+        if args.ab:
+            ab_compare(args.ab, path, tables, args.ab_k2_masks)
+        del path
+        if args.profile:
+            profile_kernels(bound)
+            profile_pairs()
+        rows += check_probes()
+        run_single_card_flags()
+
+        check_gather_ops()
+        check_gather_pair()
+        run_gather_path(csvs, plane_logs, args.profile)
+        check_native_ingest(csvs)
 
     print(f"[total] {time.time() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """The PyTorch port's CLI writes the JAX CLI's decision logs byte for byte.
 
 Both CLIs run the default main path (plane engine, fused 2CP->3CP pairs,
-FULL and HALF) over a two-frame GOP, which covers the reference-buffer
+FULL and HALF) over a two-frame GOP, and the port's ``--Engine gather``
+(four separate stages) must write the same bytes, which covers the reference-buffer
 schedule, lambda(QP, POC), the 2CP->3CP chain and the log writer
 (main.cpp:578-1010 end to end).  The JAX CLI runs once, in a child process
 on the CPU (XLA:CPU needs the raised stack rlimit for stage compiles, see
@@ -96,6 +97,17 @@ def test_cli_decision_logs_match_jax(tmp_path, jax_run):
         assert got[name] == want[name], name
 
 
+@pytest.mark.parametrize("extra", [[], ["--PerPredTiming"]])
+def test_cli_gather_engine_matches_jax(tmp_path, jax_run, extra):
+    """``--Engine gather`` (the per-pred timing is its only dispatch, so
+    ``--PerPredTiming`` changes nothing) writes the JAX plane logs."""
+    args, want = jax_run
+    assert torch_cli.main(["-f", str(N)] + args
+                          + ["-l", str(tmp_path / "g"), "--Engine", "gather"]
+                          + extra, device="cpu") == 0
+    assert _logs(str(tmp_path), "g") == want
+
+
 @pytest.mark.parametrize("extra", [["--PerPredTiming"], ["--SkipHalf"],
                                    ["--SkipFull"]])
 def test_cli_options_keep_the_decisions(tmp_path, extra):
@@ -155,12 +167,12 @@ def test_report_results_matches_jax(tmp_path):
 
 def test_cli_refuses_unported_flags(tmp_path, capsys):
     base = ["-f", "1", "-s", "128x128", "-q", "32", "-o", "x", "-r", "y"]
-    for extra in (["--NumChips", "2"], ["--Coordinator", "h:1"],
-                  ["--Engine", "gather"]):
+    for extra in (["--NumChips", "2"], ["--Coordinator", "h:1"]):
         assert torch_cli.main(base + extra, device="cpu") == 1
         assert "not yet ported (ROADMAP)" in capsys.readouterr().err
     for extra in (["--CheckpointDir", str(tmp_path)],
-                  ["--DeviceTrace", "t.csv"], ["--MemoryReport"]):
+                  ["--DeviceTrace", "t.csv"], ["--MemoryReport"],
+                  ["--Engine", "gather"]):
         args = torch_cli.build_parser().parse_args(base + extra)
         assert torch_cli._unported(args) == []
 

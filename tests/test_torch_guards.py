@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from vvc_affine_tpu_torch import cli, kernels, resolve_device
+from vvc_affine_tpu_torch.models import affine_me as tme
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.models import pipeline
 from vvc_affine_tpu_torch.tools import mosaic_probe
@@ -70,6 +71,13 @@ def test_entry_points_refuse_the_cpu_without_a_card(no_cuda, tmp_path):
         tap.zero_cpmvs(s2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.AffineMEPipeline(pipeline.PipelineConfig(128, 128, 32))
+    g2 = tme.StageSpec("full", 2, 128, 128)
+    for make in (tme.build_stage, tme.build_tables, tme.zero_cpmvs):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(g2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.AffineMEPipeline(pipeline.PipelineConfig(
+            128, 128, 32, engine="gather"))
     args = ["-f", "1", "-s", "128x128", "-q", "32",
             "-o", str(tmp_path / "o.csv"), "-r", str(tmp_path / "r.csv")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -77,9 +85,12 @@ def test_entry_points_refuse_the_cpu_without_a_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(args + ["--DeviceIndex", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args + ["--Engine", "gather"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         mosaic_probe.main([])
     # asking for the CPU is the one way to run there
     assert tap.zero_cpmvs(s2, "cpu").device.type == "cpu"
+    assert tme.zero_cpmvs(g2, "cpu").device.type == "cpu"
 
 
 def test_default_cuda_device_carries_its_index(monkeypatch):

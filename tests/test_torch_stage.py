@@ -7,7 +7,11 @@ the CPU) against the JAX ``build_pair_stage`` on its exact XLA path, at a
 path).  The JAX stages compile in fresh child processes with the raised
 stack rlimit (XLA:CPU segfaults compiling stage graphs late in long
 processes, see tests/test_plane_engine.py); the four children run at once.
-Also: the port's ``build_tables`` equals the JAX one field by field.
+The port's gather engine (``models/affine_me``, 2CP then 3CP) is held
+against the same JAX pair outputs: the JAX package's own tests hold its two
+engines bit-identical (tests/test_engine_parity.py), so no JAX gather stage
+is compiled here.  Also: the port's ``build_tables`` equals the JAX one
+field by field.
 """
 
 import os
@@ -21,6 +25,7 @@ import torch
 from tests._child import _raise_stack
 from vvc_affine_tpu.models import affine_plane as jap
 from vvc_affine_tpu_torch import testing
+from vvc_affine_tpu_torch.models import affine_me as tme
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.ops import blockreduce as tbr
 
@@ -105,6 +110,23 @@ def test_pair_stage_matches_jax(jax_pairs, mode, fw, fh):
     c3, p3 = tap.build_stage(s3, device="cpu")(*args[:3], p2)
     for g, w in zip((c2, p2, c3, p3), got):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode,fw,fh", CASES)
+def test_gather_pair_matches_jax(jax_pairs, mode, fw, fh):
+    """The gather engine's 2CP stage, then its 3CP stage on the 2CP CPMVs
+    (as the pipeline chains them), equals the JAX pair."""
+    want = jax_pairs[(mode, fw, fh)]
+    ref, orig = _frames(fw, fh)
+    z = tme.zero_cpmvs(tme.StageSpec(mode, 2, fw, fh), "cpu")
+    args = tap.stage_inputs_from_numpy(ref, orig, LAM, z, "cpu")
+    c2, p2 = tme.build_stage(tme.StageSpec(mode, 2, fw, fh), "cpu")(*args)
+    c3, p3 = tme.build_stage(tme.StageSpec(mode, 3, fw, fh), "cpu")(
+        *args[:3], p2)
+    for g, w, dtype in zip((c2, p2, c3, p3), want,
+                           (torch.int64, torch.int32) * 2):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), w)
 
 
 @pytest.mark.parametrize("mode,fw,fh", CASES)

@@ -9,12 +9,15 @@ CUDA (``csrc/``), built with ``nvcc`` at first use (``kernels.py``), as are
 the six window probes of ``tools/mosaic_probe.py``.  Every kernel wrapper
 keeps a plain PyTorch version of the same function, which it runs only for
 tensors on the CPU; the tests hold the port against the JAX package on the
-CPU through those plain versions.
+CPU through those plain versions.  The gather engine (``models/affine_me``,
+``--Engine gather``) has no kernel of its own: plain PyTorch ops on any
+device.  The CSV ingest and the decision-log writer are native C++
+(``native/``), built with ``g++`` at first use.
 
 Entry points (``models.affine_plane.build_stage``/``build_pair_stage``,
-``models.pipeline.AffineMEPipeline``, ``cli.main`` and
-``tools.mosaic_probe.main``) run on ``cuda`` unless the caller passes
-``device="cpu"``; with no card they raise.
+``models.affine_me.build_stage``, ``models.pipeline.AffineMEPipeline``,
+``cli.main`` and ``tools.mosaic_probe.main``) run on ``cuda`` unless the
+caller passes ``device="cpu"``; with no card they raise.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ drive the same run shape:
     python -m vvc_affine_tpu_torch.cli -f 2 -s 1920x1080 -q 32 \
         -o original_frames.csv -r reconstructed_frames.csv -l decisions_log
 
-Runs on ``cuda:<DeviceIndex>``; the flags of the JAX package that this port
-does not implement yet (``--NumChips > 1``, ``--Coordinator``, ``--Engine
-gather``) are refused with exit code 1.
+Runs on ``cuda:<DeviceIndex>``; ``--Engine gather`` runs the merged-group
+engine (``models/affine_me.py``) in place of the plane engine, with the same
+decision logs.  The flags of the JAX package that this port does not
+implement yet (``--NumChips > 1``, ``--Coordinator``) are refused with exit
+code 1.
 """
 
 from __future__ import annotations
@@ -67,7 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--SkipHalf", action="store_true",
                    help="Skip half-aligned-CU prediction")
     p.add_argument("--Engine", choices=("plane", "gather"), default="plane",
-                   help="Compute engine (only 'plane' is ported)")
+                   help="Compute engine: 'plane' (dense planes, the CUDA "
+                        "kernels) or 'gather' (per-CU window gathers in "
+                        "plain PyTorch ops, four separate stages); the "
+                        "decisions are identical")
     p.add_argument("--PerPredTiming", action="store_true",
                    help="Dispatch the 2CP/3CP stages separately for a "
                         "per-pred-type timing split (the reference's "
@@ -82,8 +87,6 @@ def _unported(args) -> list:
         flags.append("--NumChips > 1")
     if args.Coordinator:
         flags.append("--Coordinator")
-    if args.Engine == "gather":
-        flags.append("--Engine gather")
     return flags
 
 
@@ -107,7 +110,7 @@ def main(argv=None, device=None) -> int:
     cfg = PipelineConfig(
         frame_w=w, frame_h=h, qp=args.QP, extra_iters=args.ExtraGradientIter,
         test_full=not args.SkipFull, test_half=not args.SkipHalf,
-        device=device, fused=not args.PerPredTiming,
+        device=device, fused=not args.PerPredTiming, engine=args.Engine,
     )
     pipe = AffineMEPipeline(cfg)
 

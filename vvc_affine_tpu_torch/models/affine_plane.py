@@ -394,7 +394,11 @@ def _init_cpmvs(spec: PlaneSpec, t: PlaneTables, prev):
     return torch.cat(parts, dim=1)
 
 
-def _refine_cpmvs(spec: PlaneSpec, t: PlaneTables, cpmvs, M, rhs):
+def refine_cpmvs(spec, t, cpmvs, M, rhs):
+    """One refinement step: solve the systems, add the scaled deltas,
+    clamp and clip (affine.cl:782-893).  ``t`` holds the per-CU ``cu_w``,
+    ``cu_h``, ``abs_x`` and ``abs_y`` in the CU order of ``cpmvs`` (either
+    engine's tables)."""
     params = solver_ops.solve_affine(M, rhs, spec.n_cp)
     deltas = solver_ops.scale_delta_mvs(params, spec.n_cp, t.cu_w, t.cu_h)
     new = clamp(cpmvs + deltas, C.MV_MIN, C.MV_MAX)
@@ -440,18 +444,20 @@ def _stage_core(spec: PlaneSpec, t: PlaneTables, ref_flat, orig_pl, ref_pl,
         # iteration 0 in closed form (zero CPMVs)
         satd, M, rhs = _evaluate_zero(spec, t, ref_pl, orig_pl, True)
         best_cost, best_cp = update_best(curr, satd, best_cost, best_cp)
-        curr = _refine_cpmvs(spec, t, curr, M, rhs)
+        curr = refine_cpmvs(spec, t, curr, M, rhs)
         n_iters -= 1
     for _ in range(n_iters):
         satd, M, rhs = _evaluate(spec, t, ref_flat, orig_pl, curr, True)
         best_cost, best_cp = update_best(curr, satd, best_cost, best_cp)
-        curr = _refine_cpmvs(spec, t, curr, M, rhs)
+        curr = refine_cpmvs(spec, t, curr, M, rhs)
     satd, _, _ = _evaluate(spec, t, ref_flat, orig_pl, curr, False)
     return update_best(curr, satd, best_cost, best_cp)
 
 
-def _check_inputs(t: PlaneTables, spec: PlaneSpec, device, ref_flat,
-                  orig_flat, lam, prev):
+def check_inputs(t, spec, device, ref_flat, orig_flat, lam, prev):
+    """Raise ValueError unless a stage's inputs have the contract's dtypes
+    and shapes on ``device`` (``t``: the stage's tables, with ``n_ctus``
+    and ``n_cus``; ``spec``: its frame size; either engine's)."""
     n = spec.frame_w * spec.frame_h
     for name, x, dtype, shape in (
             ("ref_flat", ref_flat, torch.int32, (n,)),
@@ -469,8 +475,8 @@ def _stage_fn(spec: PlaneSpec, device: torch.device):
     tables = build_tables(spec, device)
 
     def run(ref_flat, orig_flat, lam, prev_cpmvs):
-        _check_inputs(tables, spec, device, ref_flat, orig_flat, lam,
-                      prev_cpmvs)
+        check_inputs(tables, spec, device, ref_flat, orig_flat, lam,
+                     prev_cpmvs)
         orig_pl, ref_pl = prep_inputs(spec, tables, ref_flat, orig_flat)
         return _stage_core(spec, tables, ref_flat, orig_pl, ref_pl, lam,
                            prev_cpmvs)
@@ -493,7 +499,7 @@ def _pair_fn(spec2: PlaneSpec, spec3: PlaneSpec, device: torch.device):
     tables = build_tables(spec2, device)   # mode/frame geometry: same for both
 
     def run(ref_flat, orig_flat, lam, prev2):
-        _check_inputs(tables, spec2, device, ref_flat, orig_flat, lam, prev2)
+        check_inputs(tables, spec2, device, ref_flat, orig_flat, lam, prev2)
         orig_pl, ref_pl = prep_inputs(spec2, tables, ref_flat, orig_flat)
         c2, p2 = _stage_core(spec2, tables, ref_flat, orig_pl, ref_pl, lam,
                              prev2)

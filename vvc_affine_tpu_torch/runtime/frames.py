@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from vvc_affine_tpu_torch import constants as C
+from vvc_affine_tpu_torch import native
 
 
 def check_samples(frames, what: str) -> None:
@@ -30,39 +31,35 @@ def check_samples(frames, what: str) -> None:
 def read_frames_csv(path: str, frame_w: int, frame_h: int, n_frames: int) -> np.ndarray:
     """Parse a concatenated-frames CSV -> uint16 [n_frames, frame_h, frame_w].
 
-    Uses pandas' C parser when pandas is installed, else a line-by-line
-    NumPy parser.  Samples outside [0, 1023] (``check_samples``) and short
-    files raise.
+    Uses the native mmap parser (``native.parse_luma_csv``, the analogue of
+    the reference's C++ parse loop, main.cpp:310-330).  A short file, a
+    malformed field or a value above 65535 raises ValueError with the row;
+    a file that cannot be opened raises OSError; samples outside [0, 1023]
+    (``check_samples``) raise ValueError.
     """
-    rows_needed = frame_h * n_frames
-    try:
-        import pandas as pd
-    except ImportError:
-        pd = None
-    if pd is not None:
-        df = pd.read_csv(
-            path, header=None, nrows=rows_needed, dtype=np.int64,
-            usecols=range(frame_w), engine="c",
-        )
-        vals = df.to_numpy()
-    else:
-        vals = np.empty((rows_needed, frame_w), np.int64)
-        with open(path, "r") as f:
-            for r in range(rows_needed):
-                line = f.readline()
-                if not line:
-                    raise ValueError(
-                        f"{path}: ran out of rows at {r} (need {rows_needed})"
-                    )
-                vals[r] = np.array(
-                    line.rstrip("\n").rstrip(",").split(",")[:frame_w],
-                    np.int64)
+    vals = native.parse_luma_csv(path, frame_h * n_frames, frame_w)
     check_samples(vals, path)
-    if vals.shape[0] < rows_needed:
-        raise ValueError(
-            f"{path}: {vals.shape[0]} rows, need {rows_needed} "
-            f"({n_frames} frames x {frame_h})"
-        )
+    return vals.reshape(n_frames, frame_h, frame_w)
+
+
+def read_frames_csv_plain(path: str, frame_w: int, frame_h: int,
+                          n_frames: int) -> np.ndarray:
+    """The plain version of ``read_frames_csv``: a line-by-line NumPy
+    parser, with the same result and the same refusals of short files and
+    of samples outside [0, 1023]."""
+    rows_needed = frame_h * n_frames
+    vals = np.empty((rows_needed, frame_w), np.int64)
+    with open(path, "r") as f:
+        for r in range(rows_needed):
+            line = f.readline()
+            if not line:
+                raise ValueError(
+                    f"{path}: ran out of rows at {r} (need {rows_needed})"
+                )
+            vals[r] = np.array(
+                line.rstrip("\n").rstrip(",").split(",")[:frame_w],
+                np.int64)
+    check_samples(vals, path)
     return vals.astype(np.uint16).reshape(n_frames, frame_h, frame_w)
 
 

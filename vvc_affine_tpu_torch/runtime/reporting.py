@@ -5,7 +5,9 @@ Behavioural spec: reportAffineResultsMaster_new
 header ``POC,List,Ref,CTU,idx,X,Y,Cost,LT_X,LT_Y,RT_X,RT_Y,LB_X,LB_Y``, rows
 appended per (poc, refIdx) in class order; half-aligned size groups sharing a
 size string share a file.  removeOldTraces (main_aux_functions.h:1547-1585)
-deletes stale logs before a run.  The bytes written are the JAX package's.
+deletes stale logs before a run.  The bytes written are the JAX package's;
+the rows go through the native writer (``native/``) unless they are also
+printed.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from vvc_affine_tpu_torch import geometry as G
+from vvc_affine_tpu_torch import native
 from vvc_affine_tpu_torch import planes as P
 
 PRED_NAMES = ("FULL_2CPs", "FULL_3CPs", "HALF_2CPs", "HALF_3CPs")
@@ -54,6 +57,16 @@ def write_headers(prefix: str, pred: int) -> None:
             f.write(_HEADER)
 
 
+def format_rows(meta: np.ndarray, cost: np.ndarray, cpmv: np.ndarray) -> str:
+    """The plain decision-log writer: rows as text, one per entry of meta
+    int32 [n, 7], cost int64 [n] and cpmv int32 [n, 6] (the bytes
+    ``native.append_decision_rows`` writes)."""
+    return "".join(
+        f"{m[0]},{m[1]},{m[2]},{m[3]},{m[4]},{m[5]},{m[6]},{c},"
+        f"{v[0]},{v[1]},{v[2]},{v[3]},{v[4]},{v[5]}\n"
+        for m, c, v in zip(meta, cost, cpmv))
+
+
 def report_results(
     prefix: Optional[str],
     pred: int,
@@ -64,7 +77,12 @@ def report_results(
     ref: int,
     to_terminal: bool = False,
 ) -> None:
-    """Append one (poc, refIdx, pred) result block to the decision logs."""
+    """Append one (poc, refIdx, pred) result block to the decision logs.
+
+    The rows go through the native writer (``native.append_decision_rows``),
+    or through ``format_rows`` when they are printed too
+    (``to_terminal``), as the JAX package does.
+    """
     if prefix is None and not to_terminal:
         return
     lay = G.layout(PRED_MODES[pred])
@@ -79,11 +97,6 @@ def report_results(
         for ci, cls in enumerate(lay.classes):
             stride = lay.return_strides[ci]
             path = f"{prefix}_{PRED_NAMES[pred]}_{cls.size_str}.csv" if prefix else None
-            fh = None
-            if path is not None:
-                if path not in handles:
-                    handles[path] = open(path, "a")
-                fh = handles[path]
             # vectorised row block: meta (POC,List,Ref,CTU,idx,X,Y), cost,
             # six CPMV components per row, CTU-major, CU raster within
             nc = cls.num_cus
@@ -98,26 +111,21 @@ def report_results(
             meta[..., 4] = np.arange(nc, dtype=np.int32)[None, :]
             meta[..., 5] = off_x[:, None] + np.asarray(cls.xs, np.int32)[None, :]
             meta[..., 6] = off_y[:, None] + np.asarray(cls.ys, np.int32)[None, :]
+            meta = meta.reshape(-1, 7)
             cost_blk = np.ascontiguousarray(
-                costs[:, stride:stride + nc], np.int64)
+                costs[:, stride:stride + nc], np.int64).reshape(-1)
             cpmv_blk = np.ascontiguousarray(
-                cpmvs[:, stride:stride + nc].reshape(n_ctus, nc, 6), np.int32)
+                cpmvs[:, stride:stride + nc], np.int32).reshape(-1, 6)
 
-            lines = []
-            for ctu in range(n_ctus):
-                for cu in range(nc):
-                    m = meta[ctu, cu]
-                    v = cpmv_blk[ctu, cu]
-                    lines.append(
-                        f"{m[0]},{m[1]},{m[2]},{m[3]},{m[4]},{m[5]},{m[6]},"
-                        f"{cost_blk[ctu, cu]},"
-                        f"{v[0]},{v[1]},{v[2]},{v[3]},{v[4]},{v[5]}\n"
-                    )
-            block = "".join(lines)
-            if fh is not None:
-                fh.write(block)
-            if to_terminal:
-                print(block, end="")
+            if not to_terminal:
+                native.append_decision_rows(path, meta, cost_blk, cpmv_blk)
+                continue
+            block = format_rows(meta, cost_blk, cpmv_blk)
+            if path is not None:
+                if path not in handles:
+                    handles[path] = open(path, "a")
+                handles[path].write(block)
+            print(block, end="")
     finally:
         for fh in handles.values():
             fh.close()
