@@ -69,7 +69,26 @@ Phases, in order (any failure exits non-zero before the result line):
    stages; with ``--profile``, ``[profile]`` lines with the device
    launches and busy time of one FULL and one HALF 2CP stage); (d) phase
    6's two CSVs parsed by the native library and by the plain Python
-   parser, equal arrays, both times on ``[native]`` lines.
+   parser, equal arrays, both times on ``[native]`` lines;
+12. the CTU-axis split (``parallel/mesh.py``, ``runtime/distributed.py``)
+   held on the one card: (a) ``AffineMEPipeline`` with ``mesh=make_mesh(
+   [cuda:0] * N)``, N = 2 and 4 (135 CTUs pad to 136, so a padding CTU
+   runs), at 1920x1080 -f 2 on phase 6's CSVs, logs written through
+   ``reporting``: all 40 byte-identical to phase 6's, K1 launched N x 60
+   and K2 N x 66 times; on a machine with N cards also ``cli.main
+   --NumChips N`` over N distinct cards; (b) two processes of ``python -m
+   vvc_affine_tpu_torch.cli --Coordinator 127.0.0.1:<free port>
+   --NumProcesses 2 --ProcessId k`` on card 0 (and, with two cards, on
+   card k) and phase 6's CSVs: both exit 0 within a timeout (else both are
+   killed and the phase fails), process 0's 40 logs byte-identical to
+   phase 6's, process 1's none; (c) the same two processes at 416x240 with
+   --CheckpointDir, -f 1 and then -f 2 resumed: process 0's logs equal an
+   uninterrupted one-process run's, process 1's none.  A ``split`` JSON
+   line gives the seconds per frame-ref (the CUDA-event pair times of the
+   CLI's timing report, FULL + HALF) of phase 6, (a) and (b).  On the CPU
+   the same split is held against the JAX package by
+   ``tests/test_torch_{stage,cli,distributed}.py`` (CPU shards, two and
+   four CPU processes over gloo).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -403,10 +422,23 @@ def _log_bytes(prefix):
     return out
 
 
+def _frame_ref_s(lines):
+    """Seconds per frame-ref, "POC p ref r" -> s, from the timing report's
+    per-dispatch lines ("EXEC <pred(s)> POC p ref r,<ns>"), FULL and HALF
+    summed."""
+    out = {}
+    for ln in lines:
+        if ln.startswith("EXEC "):
+            label, ns = ln.rsplit(",", 1)
+            key = label.split(" ", 2)[2]
+            out[key] = out.get(key, 0.0) + float(ns) / 1e9
+    return out
+
+
 def run_main_path(n_ctu, tmp):
     """Phase 6: the CLI at 1080p, with its CSVs and logs in ``tmp``.
-    Returns the launch counts of the run, the two CSV paths and the bytes
-    of every decision log."""
+    Returns the launch counts of the run, the two CSV paths, the bytes of
+    every decision log and the seconds per frame-ref."""
     import numpy as np
     import torch
 
@@ -422,8 +454,10 @@ def run_main_path(n_ctu, tmp):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.time()
-    rc = cli.main(["-f", "2", "-s", f"{FW}x{FH}", "-q", "32",
-                   "-o", opath, "-r", rpath, "-l", prefix])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-f", "2", "-s", f"{FW}x{FH}", "-q", "32",
+                       "-o", opath, "-r", rpath, "-l", prefix])
     torch.cuda.synchronize()
     cli_s = time.time() - t0
     launches = dict(kernels.launches)
@@ -445,9 +479,13 @@ def run_main_path(n_ctu, tmp):
             n_rows += a.shape[0]
     want_rows = 3 * n_ctu * 2 * (201 + 284)    # 3 frame-refs
     _require(n_rows == want_rows, f"{n_rows} log rows, want {want_rows}")
+    frame_ref_s = _frame_ref_s(buf.getvalue().splitlines())
+    _require(len(frame_ref_s) == 3, f"timed frame-refs {frame_ref_s}")
     print(json.dumps({"main_path": {"cli_s": cli_s, "launches": launches,
-                                    "log_rows": n_rows}}), flush=True)
-    return launches, (opath, rpath), _log_bytes(prefix)
+                                    "log_rows": n_rows,
+                                    "frame_ref_s": frame_ref_s}}),
+          flush=True)
+    return launches, (opath, rpath), _log_bytes(prefix), frame_ref_s
 
 
 def _path_launches(counts):
@@ -1162,6 +1200,190 @@ def check_native_ingest(csvs):
             "plain_s": t2 - t1}), flush=True)
 
 
+def _split_in_process(devices, csvs):
+    """Phase 12a, one layout: the 1080p -f 2 pipeline split over
+    ``devices``, logs through ``reporting``.  Returns the logs, the launch
+    counts and the seconds per frame-ref."""
+    import torch
+
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.models.pipeline import (AffineMEPipeline,
+                                                      PipelineConfig)
+    from vvc_affine_tpu_torch.parallel import mesh as pmesh
+    from vvc_affine_tpu_torch.runtime import frames as frames_io
+    from vvc_affine_tpu_torch.runtime import reporting
+
+    orig, ref = (frames_io.read_frames_csv(p, FW, FH, 2) for p in csvs)
+    pipe = AffineMEPipeline(PipelineConfig(
+        FW, FH, 32, mesh=pmesh.make_mesh(devices)))
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "split")
+
+        def on_result(r):
+            reporting.report_results(prefix, r.pred, FW, r.costs.cpu().numpy(),
+                                     r.cpmvs.cpu().numpy(), r.poc, r.ref_idx)
+
+        timing = reporting.Timing()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            pipe.encode(orig, ref, on_result=on_result, timing=timing)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        launches = dict(kernels.launches)
+        logs = _log_bytes(prefix)
+    return logs, launches, _frame_ref_s(
+        f"{label},{sec * 1e9}" for label, sec in timing.events)
+
+
+def _split_cli(n, csvs):
+    """Phase 12a on N distinct cards: ``cli.main --NumChips N`` at 1080p
+    -f 2.  Returns the logs, the launch counts and the seconds per
+    frame-ref."""
+    import torch
+
+    from vvc_affine_tpu_torch import cli, kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "split")
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-f", "2", "-s", f"{FW}x{FH}", "-q", "32",
+                           "-o", csvs[0], "-r", csvs[1], "-l", prefix,
+                           "--NumChips", str(n)])
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        launches = dict(kernels.launches)
+        _require(rc == 0, f"cli.main --NumChips {n} returned {rc}")
+        logs = _log_bytes(prefix)
+    return logs, launches, _frame_ref_s(buf.getvalue().splitlines())
+
+
+def _two_processes(argv, tmp, stem, distinct=False, timeout=300):
+    """Phase 12b/c: ``python -m vvc_affine_tpu_torch.cli`` as processes 0
+    and 1 of a gloo group on a free local port, process k with ``-l
+    <tmp>/<stem><k>``, both on card 0 or (``distinct``) process k on card
+    k.  Both must exit 0 within ``timeout`` seconds; otherwise both are
+    killed and the phase fails.  Returns their outputs and the wall
+    seconds."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # both processes on this host: gloo on the loopback interface
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "vvc_affine_tpu_torch.cli", *argv,
+         "-l", os.path.join(tmp, f"{stem}{k}"),
+         "--Coordinator", f"127.0.0.1:{port}", "--NumProcesses", "2",
+         "--ProcessId", str(k), "--DeviceIndex", str(k if distinct else 0)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, timeout - (time.time() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"{stem}: the two CLI processes did not end "
+                           f"within {timeout} s; both killed")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall_s = time.time() - t0
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        _require(p.returncode == 0, f"{stem}: process {k} exited "
+                                    f"{p.returncode}:\n{out[-3000:]}")
+    return outs, wall_s
+
+
+def check_split(csvs, plane_logs, main_s):
+    """Phase 12: the CTU-axis split held on the card, in one process
+    (N = 2, 4 shards on one card; with ``--NumChips N`` on distinct cards
+    where there are N) and in two processes (1080p on one card, and on two
+    cards where there are two; a 416x240 run resumed across them)."""
+    import torch
+
+    from vvc_affine_tpu_torch import cli, testing
+    from vvc_affine_tpu_torch.runtime import frames as frames_io
+
+    summary = {"phase6_frame_ref_s": main_s}
+    cards = torch.cuda.device_count()
+    for n in (2, 4):
+        layouts = {"one card": [torch.device("cuda:0")] * n}
+        if cards >= n:
+            layouts["distinct cards"] = [torch.device("cuda", i)
+                                         for i in range(n)]
+        for name, devices in layouts.items():
+            logs, launches, frame_s = (
+                _split_in_process(devices, csvs) if name == "one card"
+                else _split_cli(n, csvs))
+            want = _path_launches({k: n * 3 * v
+                                   for k, v in PAIR_LAUNCHES.items()})
+            _require(launches == want, f"split {n} on {name}: launches "
+                                       f"{launches}, want {want}")
+            differ = [k for k in plane_logs if logs.get(k) != plane_logs[k]]
+            _require(logs == plane_logs, f"split {n} on {name}: logs differ "
+                                         f"from phase 6's: {differ}")
+            summary[f"{n} shards, {name}"] = {
+                "frame_ref_s": frame_s, "launches": launches,
+                "logs_identical": len(logs)}
+            print(f"[split] {n} shards on {name}: 40 logs == phase 6's, K1 "
+                  f"{launches['warp']} and K2 {launches['blockreduce']} "
+                  f"launches", flush=True)
+
+    opath, rpath = csvs
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, stem, distinct in (("one card", "a", False),
+                                     ("two cards", "b", True))[:cards]:
+            outs, wall_s = _two_processes(
+                ["-f", "2", "-s", f"{FW}x{FH}", "-q", "32", "-o", opath,
+                 "-r", rpath], tmp, stem, distinct)
+            logs = _log_bytes(os.path.join(tmp, f"{stem}0"))
+            _require(logs == plane_logs, f"two processes on {name}: "
+                     "process 0's logs differ from phase 6's")
+            _require(not [f for f in os.listdir(tmp)
+                          if f.startswith(f"{stem}1")],
+                     f"two processes on {name}: process 1 wrote logs")
+            summary[f"two processes, {name}"] = {
+                "frame_ref_s": [_frame_ref_s(o.splitlines()) for o in outs],
+                "wall_s": wall_s, "logs_identical": len(logs)}
+            print(f"[split] two processes on {name}: process 0's 40 logs "
+                  f"== phase 6's, process 1 wrote none", flush=True)
+
+        orig_g, recon_g = testing.affine_gop(SMALL_W, SMALL_H, 2, seed=1)
+        small = [os.path.join(tmp, f) for f in ("so.csv", "sr.csv")]
+        frames_io.write_frames_csv(small[0], orig_g)
+        frames_io.write_frames_csv(small[1], recon_g)
+        base = ["-s", f"{SMALL_W}x{SMALL_H}", "-q", "32", "-o", small[0],
+                "-r", small[1]]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["-f", "2"] + base
+                          + ["-l", os.path.join(tmp, "whole")])
+        _require(rc == 0, f"uninterrupted 416x240 run returned {rc}")
+        ckpt = ["--CheckpointDir", os.path.join(tmp, "ckpt")]
+        _two_processes(["-f", "1"] + base + ckpt, tmp, "r")
+        _two_processes(["-f", "2"] + base + ckpt, tmp, "r")
+        want = _log_bytes(os.path.join(tmp, "whole"))
+        got = _log_bytes(os.path.join(tmp, "r0"))
+        _require(len(want) == len(plane_logs) and got == want,
+                 "resumed two-process run: logs differ from the "
+                 "uninterrupted run's")
+        _require(not [f for f in os.listdir(tmp) if f.startswith("r1")],
+                 "resumed two-process run: process 1 wrote logs")
+        summary["resumed two processes, 416x240"] = {
+            "logs_identical": len(got)}
+        print("[split] two processes at 416x240, -f 1 then -f 2 resumed: "
+              "logs == the uninterrupted run's", flush=True)
+    print(json.dumps({"split": summary}), flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1209,8 +1431,8 @@ def main(argv=None) -> int:
     br_stats = check_blockreduce(tables, orig_pl, rng)
     check_card_vs_cpu()
     with tempfile.TemporaryDirectory() as work:
-        launches, csvs, plane_logs = run_main_path(tables["full"].n_ctus,
-                                                   work)
+        launches, csvs, plane_logs, main_s = run_main_path(
+            tables["full"].n_ctus, work)
         path = capture_path_launches()
         rows, bound = time_kernels(tables, warp_stats, br_stats, launches,
                                    path)
@@ -1227,6 +1449,7 @@ def main(argv=None) -> int:
         check_gather_pair()
         run_gather_path(csvs, plane_logs, args.profile)
         check_native_ingest(csvs)
+        check_split(csvs, plane_logs, main_s)
 
     print(f"[total] {time.time() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -9,10 +9,15 @@ on the CPU (XLA:CPU needs the raised stack rlimit for stage compiles, see
 tests/_child.py); the port runs here with ``device="cpu"``, uninterrupted
 and resumed from a checkpoint (after a clean stop, and after a crash in the
 middle of a frame).  The port's checkpoint pruning, device trace and memory
-report are held against the JAX package's too.
+report are held against the JAX package's too.  So is the port's
+multi-device path: ``--NumChips 2`` on the CPU (the one CTU of the frame
+and one padding CTU), and runs of two processes over gloo
+(``--Coordinator``), uninterrupted and resumed from a checkpoint, whose
+follower writes no file.
 """
 
 import os
+import socket
 import subprocess
 import sys
 
@@ -165,16 +170,28 @@ def test_report_results_matches_jax(tmp_path):
                 assert a.read() == b.read(), tp
 
 
-def test_cli_refuses_unported_flags(tmp_path, capsys):
+def test_cli_refuses_unported_flags(monkeypatch, capsys):
+    """Every flag of the JAX CLI is ported; a split over more cards than
+    the machine has exits with code 1 (as the JAX CLI does) before it
+    reads a frame or joins a process group, and the mesh never shrinks."""
     base = ["-f", "1", "-s", "128x128", "-q", "32", "-o", "x", "-r", "y"]
-    for extra in (["--NumChips", "2"], ["--Coordinator", "h:1"]):
-        assert torch_cli.main(base + extra, device="cpu") == 1
-        assert "not yet ported (ROADMAP)" in capsys.readouterr().err
-    for extra in (["--CheckpointDir", str(tmp_path)],
-                  ["--DeviceTrace", "t.csv"], ["--MemoryReport"],
-                  ["--Engine", "gather"]):
-        args = torch_cli.build_parser().parse_args(base + extra)
-        assert torch_cli._unported(args) == []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for extra, need in ((["--NumChips", "3"], "3 devices starting at "
+                         "index 0, have 2"),
+                        (["--NumChips", "2", "--DeviceIndex", "1"],
+                         "2 devices starting at index 1, have 2"),
+                        (["--Coordinator", "127.0.0.1:1", "--NumProcesses",
+                          "2", "--ProcessId", "1", "--DeviceIndex", "2"],
+                         "1 devices starting at index 2, have 2")):
+        assert torch_cli.main(base + extra) == 1
+        assert f"Need {need}" in capsys.readouterr().err
+    args = torch_cli.build_parser().parse_args(
+        base + ["--NumChips", "2", "--Coordinator", "h:1", "--NumProcesses",
+                "4", "--ProcessId", "3", "--CheckpointDir", "c",
+                "--DeviceTrace", "t.csv", "--MemoryReport", "--Engine",
+                "gather"])
+    assert (args.NumChips, args.Coordinator, args.NumProcesses,
+            args.ProcessId) == (2, "h:1", 4, 3)
 
 
 def _poc_rows(logs):
@@ -339,3 +356,67 @@ def test_samples_outside_10_bits_are_refused(tmp_path, entry):
         run(bad)
     if entry != "pipeline":            # a whole encode is tested elsewhere
         run(good)
+
+
+def test_cli_num_chips_matches_jax(tmp_path, jax_run):
+    """``--NumChips 2`` on the CPU: the frame's one CTU on one shard, a
+    padding CTU on the other; the JAX logs."""
+    args, want = jax_run
+    assert torch_cli.main(["-f", str(N)] + args
+                          + ["-l", str(tmp_path / "n2"), "--NumChips", "2"],
+                          device="cpu") == 0
+    assert _logs(str(tmp_path), "n2") == want
+
+
+# a CLI process on the CPU, one intra-op thread (two run at once)
+_CLI_CHILD = ("import sys, torch; torch.set_num_threads(1); "
+              "from vvc_affine_tpu_torch import cli; "
+              "sys.exit(cli.main(sys.argv[1:], device='cpu'))")
+
+
+def _two_processes(argv, tmp):
+    """Run the port's CLI as processes 0 and 1 of a gloo group on a free
+    local port, process k with ``-l <tmp>/p<k>``; both must exit 0."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CLI_CHILD, *argv,
+         "-l", os.path.join(tmp, f"p{k}"),
+         "--Coordinator", f"127.0.0.1:{port}", "--NumProcesses", "2",
+         "--ProcessId", str(k)],
+        cwd=_REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-2000:]
+
+
+def test_cli_two_processes_match_jax(tmp_path, jax_run):
+    """Two processes over gloo, one shard each: process 0's logs are the
+    JAX logs, and process 1 writes none."""
+    args, want = jax_run
+    _two_processes(["-f", str(N)] + args, str(tmp_path))
+    assert _logs(str(tmp_path), "p0") == want
+    assert _logs(str(tmp_path), "p1") == {}
+
+
+def test_cli_two_processes_resume_matches_jax(tmp_path, jax_run):
+    """Two processes, -f 1 and then -f 2 on one checkpoint: process 1 skips
+    the frame process 0's marker says is done (``FollowerCheckpoint``),
+    and process 0's logs end as the JAX uninterrupted run's."""
+    args, want = jax_run
+    ckpt = str(tmp_path / "ckpt")
+    _two_processes(["-f", "1"] + args + ["--CheckpointDir", ckpt],
+                   str(tmp_path))
+    assert CheckpointManager(ckpt, None).completed_poc() == 1
+    assert _poc_rows(_logs(str(tmp_path), "p0")) == [1]
+    _two_processes(["-f", str(N)] + args + ["--CheckpointDir", ckpt],
+                   str(tmp_path))
+    assert CheckpointManager(ckpt, None).completed_poc() == N
+    assert _logs(str(tmp_path), "p0") == want
+    assert _logs(str(tmp_path), "p1") == {}

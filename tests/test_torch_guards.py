@@ -21,6 +21,7 @@ from vvc_affine_tpu_torch import cli, kernels, resolve_device
 from vvc_affine_tpu_torch.models import affine_me as tme
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.models import pipeline
+from vvc_affine_tpu_torch.parallel import mesh as pmesh
 from vvc_affine_tpu_torch.tools import mosaic_probe
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +89,8 @@ def test_entry_points_refuse_the_cpu_without_a_card(no_cuda, tmp_path):
         cli.main(args + ["--Engine", "gather"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mosaic_probe.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.make_mesh(["cuda", "cuda"])
     # asking for the CPU is the one way to run there
     assert tap.zero_cpmvs(s2, "cpu").device.type == "cpu"
     assert tme.zero_cpmvs(g2, "cpu").device.type == "cpu"

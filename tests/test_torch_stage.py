@@ -11,7 +11,11 @@ The port's gather engine (``models/affine_me``, 2CP then 3CP) is held
 against the same JAX pair outputs: the JAX package's own tests hold its two
 engines bit-identical (tests/test_engine_parity.py), so no JAX gather stage
 is compiled here.  Also: the port's ``build_tables`` equals the JAX one
-field by field.
+field by field, its padded tables equal the JAX package's
+``parallel/mesh._padded_dyn_tables``, and the port's CTU-axis split
+(``parallel/mesh.py``) over 2 and 3 CPU shards gives the JAX pair outputs
+for the plane pair, the separate plane stages and the gather stages (at
+256x128, 2 CTUs, the third of 3 shards holds only padding).
 """
 
 import os
@@ -24,10 +28,12 @@ import torch
 
 from tests._child import _raise_stack
 from vvc_affine_tpu.models import affine_plane as jap
+from vvc_affine_tpu.parallel import mesh as jmesh
 from vvc_affine_tpu_torch import testing
 from vvc_affine_tpu_torch.models import affine_me as tme
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.ops import blockreduce as tbr
+from vvc_affine_tpu_torch.parallel import mesh as tmesh
 
 # One intra-op thread: the suite runs several pytest workers at once, and
 # torch's default pool (a thread per core in every worker) oversubscribes
@@ -165,3 +171,72 @@ def test_build_tables_match_jax(mode, fw, fh):
         a, b = getattr(tt, f), getattr(t2, f)
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b) and a.dtype == b.dtype, f
+
+
+@pytest.mark.parametrize("mode,fw,fh", CASES)
+def test_padded_tables_match_jax(mode, fw, fh):
+    """The port's tables padded by two CTUs equal the JAX package's padded
+    tables (``parallel/mesh._padded_dyn_tables``, numpy only); the padding
+    CTUs have no in-frame CU and no active slab, and ``ctu_rows`` takes
+    rows of the per-CTU fields and shares the rest."""
+    jt = jap.build_tables(jap.PlaneSpec(mode, 2, fw, fh))
+    n_pad = jt.n_ctus + 2
+    want = jmesh._padded_dyn_tables(jap.PlaneSpec(mode, 2, fw, fh), jt,
+                                    n_pad)
+    t = tap.build_tables(tap.PlaneSpec(mode, 2, fw, fh), "cpu", n_pad)
+    assert t.n_ctus == n_pad
+    for f, jf in (("abs_x", "abs_x"), ("abs_y", "abs_y"),
+                  ("within", "within"), ("ctu_x", "ctu_x"),
+                  ("ctu_y", "ctu_y"), ("slab_active", "slab_act")):
+        w = np.asarray(getattr(want, jf))
+        assert getattr(t, f).numpy().dtype == w.dtype, f
+        np.testing.assert_array_equal(getattr(t, f).numpy(), w, err_msg=f)
+    assert not t.within[jt.n_ctus:].any()
+    assert not t.slab_active[jt.n_ctus:].any()
+    rows = tap.ctu_rows(t, 1, 3)
+    assert rows.n_ctus == 2 and torch.equal(rows.ctu_x, t.ctu_x[1:3])
+    assert rows.border_packed is t.border_packed and rows.cls_t is t.cls_t
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+@pytest.mark.parametrize("mode", ["full", "half"])
+def test_sharded_pair_matches_jax(jax_pairs, mode, n_shards):
+    """The plane pair split over ``n_shards`` CPU shards equals the JAX
+    (unsharded) pair."""
+    fw, fh = SIZES[0]
+    want = jax_pairs[(mode, fw, fh)]
+    s2 = tap.PlaneSpec(mode, 2, fw, fh)
+    s3 = tap.PlaneSpec(mode, 3, fw, fh)
+    ref, orig = _frames(fw, fh)
+    args = tap.stage_inputs_from_numpy(ref, orig, LAM,
+                                       tap.zero_cpmvs(s2, "cpu"), "cpu")
+    mesh = tmesh.make_mesh(["cpu"] * n_shards)
+    got = tmesh.build_plane_pair_sharded(s2, s3, mesh)(*args)
+    for g, w, dtype in zip(got, want, (torch.int64, torch.int32) * 2):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("engine", ["plane", "gather"])
+def test_sharded_stages_match_jax(jax_pairs, engine):
+    """The separate 2CP and 3CP stages split over 3 CPU shards (the last
+    holds only padding), 3CP on the 2CP CPMVs: the plane engine's
+    (``fused=False``) and the gather engine's equal the JAX pair."""
+    fw, fh = SIZES[0]
+    want = jax_pairs[("full", fw, fh)]
+    ref, orig = _frames(fw, fh)
+    z = tap.zero_cpmvs(tap.PlaneSpec("full", 2, fw, fh), "cpu")
+    args = tap.stage_inputs_from_numpy(ref, orig, LAM, z, "cpu")
+    mesh = tmesh.make_mesh(["cpu"] * 3)
+    if engine == "plane":
+        s2, s3 = (tmesh.build_plane_stage_sharded(
+            tap.PlaneSpec("full", n, fw, fh), mesh) for n in (2, 3))
+    else:
+        s2, s3 = (tmesh.build_stage_sharded(
+            tme.StageSpec("full", n, fw, fh), mesh) for n in (2, 3))
+    c2, p2 = s2(*args)
+    c3, p3 = s3(*args[:3], p2)
+    for g, w, dtype in zip((c2, p2, c3, p3), want,
+                           (torch.int64, torch.int32) * 2):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), w)

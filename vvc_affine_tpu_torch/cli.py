@@ -9,9 +9,14 @@ drive the same run shape:
 
 Runs on ``cuda:<DeviceIndex>``; ``--Engine gather`` runs the merged-group
 engine (``models/affine_me.py``) in place of the plane engine, with the same
-decision logs.  The flags of the JAX package that this port does not
-implement yet (``--NumChips > 1``, ``--Coordinator``) are refused with exit
-code 1.
+decision logs.  ``--NumChips N`` splits the CTU axis over N cards from
+``--DeviceIndex`` on (``parallel/mesh.py``), and exits with code 1 when
+there are fewer.  ``--Coordinator host:port --NumProcesses P --ProcessId
+R`` runs one of P processes (``runtime/distributed.py``), each on its
+``--NumChips`` cards, over one split; process 0 alone writes the logs:
+
+    python -m vvc_affine_tpu_torch.cli ... \
+        --Coordinator 127.0.0.1:29500 --NumProcesses 2 --ProcessId 0
 """
 
 from __future__ import annotations
@@ -19,10 +24,16 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+
+from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.models.pipeline import AffineMEPipeline, PipelineConfig
+from vvc_affine_tpu_torch.parallel import mesh as pmesh
+from vvc_affine_tpu_torch.runtime import distributed as dist
 from vvc_affine_tpu_torch.runtime import frames as frames_io
 from vvc_affine_tpu_torch.runtime import reporting
-from vvc_affine_tpu_torch.runtime.checkpoint import CheckpointManager
+from vvc_affine_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                     FollowerCheckpoint)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,11 +44,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--DeviceIndex", type=int, default=0,
                    help="Index of the CUDA device (main.cpp:154-216)")
     p.add_argument("--NumChips", type=int, default=1,
-                   help="Shard the CTU axis over this many devices "
-                        "(not yet ported: 1 only)")
+                   help="Shard the CTU axis over this many devices from "
+                        "--DeviceIndex on (per process; 1 = one device)")
     p.add_argument("--Coordinator", type=str, default="",
-                   help="host:port of a multi-host coordinator "
-                        "(not yet ported)")
+                   help="host:port of process 0 of a run of several "
+                        "processes (torch.distributed, gloo); one CLI "
+                        "invocation per process")
     p.add_argument("--NumProcesses", type=int, default=1,
                    help="Total process count of the multi-host run")
     p.add_argument("--ProcessId", type=int, default=0,
@@ -81,36 +93,54 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(args) -> list:
-    flags = []
-    if args.NumChips > 1:
-        flags.append("--NumChips > 1")
-    if args.Coordinator:
-        flags.append("--Coordinator")
-    return flags
+def _mesh_devices(args, device):
+    """The ``--NumChips`` devices of this process: ``device`` that many
+    times when given, else the cards from ``--DeviceIndex`` on; None (after
+    saying so) when there are too few cards."""
+    if device is not None:
+        return [resolve_device(device)] * args.NumChips
+    have = torch.cuda.device_count()
+    if args.DeviceIndex + args.NumChips > have:
+        print(f"Need {args.NumChips} devices starting at index "
+              f"{args.DeviceIndex}, have {have}", file=sys.stderr)
+        return None
+    return [resolve_device(f"cuda:{args.DeviceIndex + i}")
+            for i in range(args.NumChips)]
 
 
 def main(argv=None, device=None) -> int:
     """Run the CLI.  ``device`` overrides ``cuda:<DeviceIndex>`` (the tests
-    pass ``device="cpu"``)."""
+    pass ``device="cpu"``; with ``--NumChips N`` the split then runs N
+    shards on it)."""
     args = build_parser().parse_args(argv)
-    for flag in _unported(args):
-        print(f"{flag}: not yet ported (ROADMAP)", file=sys.stderr)
-    if _unported(args):
-        return 1
     try:
         w, h = (int(v) for v in args.Resolution.lower().split("x"))
     except ValueError:
         print(f"Bad resolution {args.Resolution!r}; expected WxH", file=sys.stderr)
         return 1
     n = args.FramesToBeEncoded
-    if device is None:
+
+    mesh = None
+    primary = True
+    if args.Coordinator or args.NumChips > 1:
+        devices = _mesh_devices(args, device)
+        if devices is None:
+            return 1
+        if args.Coordinator:
+            dist.initialize(args.Coordinator, args.NumProcesses,
+                            args.ProcessId)
+            mesh = dist.global_mesh(devices)
+            primary = dist.is_primary()
+        else:
+            mesh = pmesh.make_mesh(devices)
+    elif device is None:
         device = f"cuda:{args.DeviceIndex}"
 
     cfg = PipelineConfig(
         frame_w=w, frame_h=h, qp=args.QP, extra_iters=args.ExtraGradientIter,
         test_full=not args.SkipFull, test_half=not args.SkipHalf,
-        device=device, fused=not args.PerPredTiming, engine=args.Engine,
+        device=device, mesh=mesh, fused=not args.PerPredTiming,
+        engine=args.Engine,
     )
     pipe = AffineMEPipeline(cfg)
 
@@ -125,16 +155,26 @@ def main(argv=None, device=None) -> int:
     prefix = args.CpmvLogFile or None
     ckpt = None
     if args.CheckpointDir:
-        ckpt = CheckpointManager(args.CheckpointDir, prefix)
+        if primary:
+            ckpt = CheckpointManager(args.CheckpointDir, prefix)
+        if args.Coordinator:
+            # every process must skip the same completed frames: the
+            # result gathers are collective
+            done = dist.broadcast_scalar(
+                ckpt.completed_poc() if primary else 0)
+            if not primary:
+                ckpt = FollowerCheckpoint(done)
     # a resumed run keeps the logs of the frames it has done
-    if prefix and (ckpt is None or ckpt.completed_poc() == 0):
+    if prefix and primary and (ckpt is None or ckpt.completed_poc() == 0):
         reporting.remove_old_traces(prefix)
 
     def on_result(r):
         if not (prefix or args.ReportToTerminal):
             return
-        costs = r.costs.cpu().numpy()
-        cpmvs = r.cpmvs.cpu().numpy()
+        costs = dist.gather_to_host(r.costs)
+        cpmvs = dist.gather_to_host(r.cpmvs)
+        if not primary:   # process 0 owns the decision logs
+            return
         print(f"Reporting results POC={r.poc} refIdx={r.ref_idx} "
               f"PredType={r.pred}")
         reporting.report_results(
@@ -155,6 +195,8 @@ def main(argv=None, device=None) -> int:
     if args.MemoryReport:
         print(reporting.memory_report(w, h, pipe.device))
     timing.report(n)
+    if args.Coordinator:
+        dist.finalize()
     return 0
 
 

@@ -174,6 +174,13 @@ def build_tables(spec: StageSpec, n_ctu_pad: int = 0,
                              resolve_device(device))
 
 
+def ctu_rows(t: StageTables, lo: int, hi: int) -> StageTables:
+    """CTUs [lo, hi) of ``t``: views of the per-CTU fields (``abs_x``,
+    ``abs_y``, ``within``), the static fields shared."""
+    return t._replace(n_ctus=hi - lo, abs_x=t.abs_x[lo:hi],
+                      abs_y=t.abs_y[lo:hi], within=t.within[lo:hi])
+
+
 def _init_cpmvs(spec: StageSpec, t: StageTables, prev_canonical):
     """Initial CPMVs in merged order.
 

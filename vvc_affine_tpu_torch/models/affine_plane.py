@@ -104,6 +104,8 @@ class PlaneTables(NamedTuple):
 # PlaneTables fields that are tensors (built from numpy arrays)
 _TENSOR_FIELDS = ("border_packed", "slab_active", "abs_x", "abs_y", "within",
                   "cu_w", "cu_h", "ctu_x", "ctu_y")
+# PlaneTables fields that lead with the CTU axis (``ctu_rows``)
+_CTU_FIELDS = ("slab_active", "abs_x", "abs_y", "within", "ctu_x", "ctu_y")
 
 
 def slab_activity(mode: str, within: np.ndarray) -> np.ndarray:
@@ -132,11 +134,22 @@ def slab_activity(mode: str, within: np.ndarray) -> np.ndarray:
     return act.astype(np.int32)
 
 
-def _tables_numpy(spec: PlaneSpec) -> dict:
-    """The JAX engine's PlaneTables fields (numpy) for this geometry."""
+def _tables_numpy(spec: PlaneSpec, n_ctu_pad: int = 0) -> dict:
+    """The JAX engine's PlaneTables fields (numpy) for this geometry.
+
+    With ``n_ctu_pad`` the CTU axis is padded to that many entries, as the
+    JAX package's ``parallel/mesh._padded_dyn_tables`` pads it: padding
+    CTUs sit at (frame_w, frame_h), so every CU in them fails the in-frame
+    test and their slabs are inactive (K1 skips them).  ``n_ctu_y`` and
+    ``n_ctu_x`` stay the frame's grid.
+    """
     lay = G.layout(spec.mode)
     grid = G.frame_grid(spec.frame_w, spec.frame_h)
     ctu_x, ctu_y = grid.ctu_origin()
+    if n_ctu_pad > grid.num_ctus:
+        extra = n_ctu_pad - grid.num_ctus
+        ctu_x = np.concatenate([ctu_x, np.full(extra, spec.frame_w, np.int32)])
+        ctu_y = np.concatenate([ctu_y, np.full(extra, spec.frame_h, np.int32)])
     abs_x = ctu_x[:, None] + lay.cu_x[None, :]
     abs_y = ctu_y[:, None] + lay.cu_y[None, :]
     within = (abs_x + lay.cu_w[None, :] <= spec.frame_w) & (
@@ -158,7 +171,7 @@ def _tables_numpy(spec: PlaneSpec) -> dict:
                 border[bi, y0:y0 + c.height, x0 + c.width - 1] |= \
                     blockreduce_ops.RIGHT
     return dict(
-        n_ctu_y=grid.ctu_rows, n_ctu_x=grid.ctu_cols, n_ctus=grid.num_ctus,
+        n_ctu_y=grid.ctu_rows, n_ctu_x=grid.ctu_cols, n_ctus=len(ctu_x),
         n_cus=lay.cus_per_ctu, n_cls=len(lay.classes),
         n_bins=len(bins), bins=bins, bin_of=bin_of,
         border_packed=border,
@@ -234,8 +247,19 @@ def tables_from_numpy(d: dict, device) -> PlaneTables:
                        **kw)
 
 
-def build_tables(spec: PlaneSpec, device=None) -> PlaneTables:
-    return tables_from_numpy(_tables_numpy(spec), resolve_device(device))
+def build_tables(spec: PlaneSpec, device=None,
+                 n_ctu_pad: int = 0) -> PlaneTables:
+    """Tables on ``device`` (``cuda`` unless given), the CTU axis
+    optionally padded to ``n_ctu_pad`` entries (``_tables_numpy``)."""
+    return tables_from_numpy(_tables_numpy(spec, n_ctu_pad),
+                             resolve_device(device))
+
+
+def ctu_rows(t: PlaneTables, lo: int, hi: int) -> PlaneTables:
+    """CTUs [lo, hi) of ``t``: views of the per-CTU fields, the static
+    fields shared."""
+    return t._replace(n_ctus=hi - lo,
+                      **{f: getattr(t, f)[lo:hi] for f in _CTU_FIELDS})
 
 
 def _class_slice(t: PlaneTables, ci: int):
@@ -410,16 +434,22 @@ def refine_cpmvs(spec, t, cpmvs, M, rhs):
 
 def prep_inputs(spec: PlaneSpec, t: PlaneTables, ref_flat, orig_flat):
     """Per-CTU 128x128 original and reference planes, int32 [nCtu, 128,
-    128], zero-padded past the frame (only within-frame CUs are used)."""
+    128], zero-padded past the frame (only within-frame CUs are used); the
+    padding CTUs of padded tables get zero planes."""
     oh = 128 * t.n_ctu_y
     ow = 128 * t.n_ctu_x
+    n_grid = t.n_ctu_y * t.n_ctu_x
 
     def to_planes(flat):
         p2d = torch.nn.functional.pad(
             flat.reshape(spec.frame_h, spec.frame_w),
             (0, ow - spec.frame_w, 0, oh - spec.frame_h))
         pl_ = p2d.reshape(t.n_ctu_y, 128, t.n_ctu_x, 128)
-        return pl_.transpose(1, 2).reshape(t.n_ctus, 128, 128)
+        pl_ = pl_.transpose(1, 2).reshape(n_grid, 128, 128)
+        if t.n_ctus > n_grid:
+            pl_ = torch.cat([pl_, pl_.new_zeros(
+                (t.n_ctus - n_grid, 128, 128))])
+        return pl_
 
     return to_planes(orig_flat), to_planes(ref_flat)
 

@@ -1,0 +1,241 @@
+"""CTU-axis split of a stage over several devices.
+
+Port of the JAX package's ``parallel/mesh.py``, with its contract: a sharded
+stage takes and returns the unsharded stage's ``[nCtu, ...]`` tensors and
+gives the same outputs, bit for bit.
+
+* The CTU axis is padded to a multiple of the shard count.  The padding
+  CTUs sit at (frame_w, frame_h), so every CU in them fails the in-frame
+  test (``affine_plane.build_tables`` / ``affine_me.build_tables`` with
+  ``n_ctu_pad``); their slabs are inactive, so K1 skips them.
+* Shard ``k`` owns the contiguous rows ``[k * per, (k + 1) * per)`` of the
+  padded axis.  Every op of a stage acts per CTU, so a shard's result does
+  not depend on the other shards' rows.
+* The frames are replicated: each is staged once on every distinct device
+  (``replicate``).  No collective runs inside a stage.
+* The padding is sliced off after the run.
+
+A ``Mesh`` lists this process's devices, one per shard; a list may name one
+card more than once, and then its shards run on that card one after
+another.  The shards are issued one after another from the calling thread
+(the glue around the kernels is host-bound, so one thread could not overlap
+them).  In one process a sharded stage returns the whole result on the
+mesh's first device.  In a run of several processes
+(``runtime.distributed``) each process runs its own shards, and a sharded
+stage returns this process's rows as a ``ProcessBlock``, which
+``distributed.gather_to_host`` gathers.
+
+Not ported, because they are TPU or XLA workarounds: the escape-counter
+telemetry and its psums, ahead-of-time compilation (``precompile``) and
+``check_vma``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import torch
+
+from vvc_affine_tpu_torch import geometry as G
+from vvc_affine_tpu_torch import resolve_device
+from vvc_affine_tpu_torch.models import affine_me, affine_plane
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The shards of a CTU split that this process runs.
+
+    ``devices``: one device per local shard; ``n_shards``: shards over all
+    processes; ``first``: the global index of ``devices[0]``'s shard (the
+    global order is rank-major).
+    """
+
+    devices: Tuple[torch.device, ...]
+    n_shards: int
+    first: int = 0
+
+
+class ProcessBlock(NamedTuple):
+    """This process's rows of a CTU-axis result split over processes: its
+    block ``rows`` of the padded axis (every process's block has the same
+    length) and the unpadded CTU count ``n_ctus``."""
+
+    rows: torch.Tensor
+    n_ctus: int
+
+
+def make_mesh(devices: Sequence) -> Mesh:
+    """A one-process mesh with one shard per entry of ``devices``."""
+    devs = tuple(resolve_device(d) for d in devices)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    return Mesh(devs, len(devs))
+
+
+def distinct_devices(mesh: Mesh) -> Tuple[torch.device, ...]:
+    """The mesh's devices, each once, in mesh order."""
+    return tuple(dict.fromkeys(mesh.devices))
+
+
+def replicate(x: torch.Tensor, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
+    """``x`` once on every distinct device of the mesh; a host tensor goes
+    to a card from pinned memory, asynchronously."""
+    out = {}
+    for d in distinct_devices(mesh):
+        if d.type == "cuda" and x.device.type == "cpu":
+            out[d] = x.pin_memory().to(d, non_blocking=True)
+        else:
+            out[d] = x.to(d)
+    return out
+
+
+def _pad_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class _Counts(NamedTuple):
+    """What ``affine_plane.check_inputs`` reads of a stage's tables."""
+
+    n_ctus: int
+    n_cus: int
+
+
+class _Split:
+    """One frame geometry split over a mesh: the padded CTU count, this
+    process's rows [lo, hi) of the padded axis, and per local shard its
+    device and rows."""
+
+    def __init__(self, spec, mesh: Mesh):
+        self.spec = spec
+        self.n_ctus = G.frame_grid(spec.frame_w, spec.frame_h).num_ctus
+        self.n_cus = G.layout(spec.mode).cus_per_ctu
+        self.n_pad = _pad_to(self.n_ctus, mesh.n_shards)
+        per = self.n_pad // mesh.n_shards
+        self.lo = mesh.first * per
+        self.hi = self.lo + len(mesh.devices) * per
+        self.devices = distinct_devices(mesh)
+        self.shards = [(d, self.lo + k * per, self.lo + (k + 1) * per)
+                       for k, d in enumerate(mesh.devices)]
+        self.across_processes = mesh.n_shards > len(mesh.devices)
+
+    def inputs(self, ref_flat, orig_flat, lam, prev):
+        """Per distinct device: (ref, orig, lam, this process's rows of the
+        padded prev), each checked against the stage contract.
+
+        ``ref_flat``, ``orig_flat`` and ``lam`` are tensors or ``replicate``
+        results; ``prev`` is the unpadded [nCtu, nCU, 3, 2] tensor or this
+        process's ``ProcessBlock`` of an earlier stage on the same mesh.
+        """
+        block = isinstance(prev, ProcessBlock)
+        if block:
+            if prev.n_ctus != self.n_ctus:
+                raise ValueError(f"prev_cpmvs: a block of {prev.n_ctus} "
+                                 f"CTUs, want {self.n_ctus}")
+            prev, counts = prev.rows, _Counts(self.hi - self.lo, self.n_cus)
+        else:
+            counts = _Counts(self.n_ctus, self.n_cus)
+        out = {}
+        for d in self.devices:
+            args = [x[d] if isinstance(x, dict) else x.to(d)
+                    for x in (ref_flat, orig_flat, lam, prev)]
+            affine_plane.check_inputs(counts, self.spec, d, *args)
+            if not block:
+                pad = args[3].new_zeros((self.n_pad - self.n_ctus,)
+                                        + tuple(args[3].shape[1:]))
+                args[3] = torch.cat([args[3], pad])[self.lo:self.hi]
+            out[d] = args
+        return out
+
+    def local(self, lo: int, hi: int) -> slice:
+        """Padded rows [lo, hi) within this process's rows."""
+        return slice(lo - self.lo, hi - self.lo)
+
+    def join(self, outs):
+        """The shards' outputs (one tuple per shard) joined on the first
+        device: unpadded tensors, or across processes ``ProcessBlock``s."""
+        first = self.devices[0]
+        joined = [torch.cat([o.to(first) for o in parts])
+                  for parts in zip(*outs)]
+        if self.across_processes:
+            return tuple(ProcessBlock(x, self.n_ctus) for x in joined)
+        return tuple(x[:self.n_ctus] for x in joined)
+
+
+def _plane_sharded(spec: affine_plane.PlaneSpec, mesh: Mesh, core):
+    """A plane-engine runner over ``mesh``: prep once per distinct device
+    on its padded tables, then ``core(tables, ref_flat, orig_pl, ref_pl,
+    lam, prev)`` per shard on the shard's rows."""
+    split = _Split(spec, mesh)
+    tables = {d: affine_plane.build_tables(spec, d, split.n_pad)
+              for d in split.devices}
+    shards = [(d, affine_plane.ctu_rows(tables[d], lo, hi),
+               split.local(lo, hi)) for d, lo, hi in split.shards]
+
+    def run(ref_flat, orig_flat, lam, prev):
+        inputs = split.inputs(ref_flat, orig_flat, lam, prev)
+        planes = {}
+        for d in split.devices:
+            pls = affine_plane.prep_inputs(spec, tables[d], *inputs[d][:2])
+            # this process's rows of the padded planes
+            planes[d] = [pl[split.lo:split.hi] for pl in pls]
+        outs = []
+        for d, t, rows in shards:
+            ref, _, lam_d, prev_d = inputs[d]
+            orig_pl, ref_pl = planes[d]
+            outs.append(core(t, ref, orig_pl[rows], ref_pl[rows], lam_d,
+                             prev_d[rows]))
+        return split.join(outs)
+
+    return run
+
+
+def build_plane_pair_sharded(spec2: affine_plane.PlaneSpec,
+                             spec3: affine_plane.PlaneSpec, mesh: Mesh):
+    """``affine_plane.build_pair_stage`` split over ``mesh``: fn(ref_flat,
+    orig_flat, lam, prev2) -> (cost2, cpmvs2, cost3, cpmvs3), the CPMV
+    handoff staying on each shard."""
+    if not (spec2.mode == spec3.mode and spec2.n_cp == 2
+            and spec3.n_cp == 3):
+        raise ValueError("build_plane_pair_sharded takes a mode's 2CP and "
+                         "3CP specs")
+
+    def core(t, ref, orig_pl, ref_pl, lam, prev2):
+        c2, p2 = affine_plane._stage_core(spec2, t, ref, orig_pl, ref_pl,
+                                          lam, prev2)
+        c3, p3 = affine_plane._stage_core(spec3, t, ref, orig_pl, ref_pl,
+                                          lam, p2)
+        return c2, p2, c3, p3
+
+    return _plane_sharded(spec2, mesh, core)
+
+
+def build_plane_stage_sharded(spec: affine_plane.PlaneSpec, mesh: Mesh):
+    """``affine_plane.build_stage`` split over ``mesh``: fn(ref_flat,
+    orig_flat, lam, prev_cpmvs) -> (cost, cpmvs)."""
+    def core(t, ref, orig_pl, ref_pl, lam, prev):
+        return affine_plane._stage_core(spec, t, ref, orig_pl, ref_pl, lam,
+                                        prev)
+
+    return _plane_sharded(spec, mesh, core)
+
+
+def build_stage_sharded(spec: affine_me.StageSpec, mesh: Mesh):
+    """``affine_me.build_stage`` (the gather engine) split over ``mesh``:
+    fn(ref_flat, orig_flat, lam, prev_cpmvs) -> (cost, cpmvs)."""
+    split = _Split(spec, mesh)
+    tables = {d: affine_me.build_tables(spec, split.n_pad, d)
+              for d in split.devices}
+    shards = [(d, affine_me.ctu_rows(tables[d], lo, hi), split.local(lo, hi))
+              for d, lo, hi in split.shards]
+
+    def run(ref_flat, orig_flat, lam, prev):
+        inputs = split.inputs(ref_flat, orig_flat, lam, prev)
+        outs = []
+        for d, t, rows in shards:
+            ref, orig, lam_d, prev_d = inputs[d]
+            outs.append(affine_me._stage_run(spec, t, ref, orig, lam_d,
+                                             prev_d[rows]))
+        return split.join(outs)
+
+    return run

@@ -71,3 +71,27 @@ class CheckpointManager:
                         pass
                 with open(path, "w") as f:
                     f.writelines(kept)
+
+
+class FollowerCheckpoint:
+    """The checkpoint of a process other than process 0 in a run of several
+    processes (``runtime.distributed``).
+
+    Every process must skip the same completed frames: the result gathers
+    are collective, so a process that ran a frame the others skipped would
+    wait for them until the collectives time out.  Only process 0 owns the
+    marker file and the decision logs, so the others get its completed POC
+    at start-up (``distributed.broadcast_scalar``) and write nothing.
+    """
+
+    def __init__(self, done_poc: int):
+        self._done = int(done_poc)
+
+    def completed_poc(self) -> int:
+        return self._done
+
+    def mark_frame_done(self, poc: int) -> None:
+        pass
+
+    def prune_logs_after(self, poc: int) -> None:
+        pass
