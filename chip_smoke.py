@@ -7,7 +7,10 @@ Phases, in order (any failure exits non-zero before the result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every kernel from ``vvc_affine_tpu_torch/csrc`` with nvcc, and the
-   native runtime library (``native/``) with g++;
+   native runtime library (``native/``) with g++; then build the 1080p
+   tables of both modes and check that K2's replication flags derived on
+   the card (``ops.blockreduce.replication_flags``) equal the table built
+   on the host that the engine reads (``PlaneTables.repl``);
 3. K1 (warp) against its plain version ``warp_xla`` at 1080p shapes, both
    alignment modes, on every field family: random phases and displacements
    up to |d| = 300, a smooth zoom and rotation (CPMVs through the engine's
@@ -88,7 +91,32 @@ Phases, in order (any failure exits non-zero before the result line):
    CLI's timing report, FULL + HALF) of phase 6, (a) and (b).  On the CPU
    the same split is held against the JAX package by
    ``tests/test_torch_{stage,cli,distributed}.py`` (CPU shards, two and
-   four CPU processes over gloo).
+   four CPU processes over gloo);
+13. the measurement tools (``vvc_affine_tpu_torch/tools``), each run as
+   ``python -m vvc_affine_tpu_torch.tools.<name>`` in a child process of
+   its own session, killed with every process it started if it outlives
+   its timeout: (a) ``power_trace`` around the 1080p -f 2 CLI on phase 6's
+   CSVs (its logs must be phase 6's), then ``energy_report`` on its trace
+   and log: every power sample a number above 0 W, every EXEC window
+   sampled, every phase's mean power at most the card's power limit
+   (``[energy]`` lines, the joules per frame-ref); (b) ``profile_stage``
+   at 1080p, FULL and ``--half`` (``[profile_stage]`` lines: each piece's
+   CUDA-event and host time, device launches, aten ops and their share of
+   the host time); (c) ``xprof_trace`` at 1080p, which must find K1 and
+   K2 among the device ops of one frame-ref, at most the 20 and 22
+   launched (the profiler may miss a few of its ~68k device events;
+   ``[xprof]`` lines); (d) ``tpu_parity`` at 832x480: every stage's costs and CPMVs on
+   the card bit-identical to the CPU golden of its child; (e)
+   ``gop_golden`` at 3840x2160 -f 1 (510 CTUs): the plane and the gather
+   CLI's 40 logs byte-identical, K1/K2 launched 20/22 times in the plane
+   child and 0/0 in the gather child; (f) ``scaling_bench`` at 1080p over
+   1, 2 and 4 shards (card 0 repeated where there are fewer cards): the
+   same result digest for every count (``[scaling]`` lines); (g) in this
+   process, one pair per mode at 3840x2160 on gop_golden's first frame
+   pair under the profiler, 10 K1 and 11 K2 launches each by the
+   wrappers' counts (``[profile]`` lines: K1/K2 device time per launch at
+   4K, the pair's idle share).  A
+   ``tools`` JSON line sums them up.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -290,6 +318,27 @@ def _warp_fields(t, mode, rng, dev):
     return fields
 
 
+def check_repl_tables(tables):
+    """Phase 2b: K2's replication flags, derived on the card from each
+    mode's 1080p masks (``ops.blockreduce.replication_flags``), equal the
+    table the engine reads (``PlaneTables.repl``), which is built on the
+    host with the other tables and moved to the card as it is."""
+    import torch
+
+    from vvc_affine_tpu_torch.ops import blockreduce as br
+
+    for mode, t in tables.items():
+        got = br.replication_flags(t.border_packed)
+        torch.cuda.synchronize()
+        _require(t.repl.device == got.device and t.repl.dtype == got.dtype
+                 and torch.equal(got, t.repl),
+                 f"{mode}: the card's replication flags differ from the "
+                 f"host table")
+        print(f"[tables] {mode} {FW}x{FH}: replication flags on the card "
+              f"== the host table ({tuple(t.repl.shape)}, "
+              f"{int((t.repl != 0).sum())} blocks flagged)", flush=True)
+
+
 def check_warp(tables, ref, rng):
     """Phase 3: K1 == warp_xla, bit for bit, on every field family.
     Returns per-mode arguments (the random field) for the timing phase and
@@ -422,19 +471,6 @@ def _log_bytes(prefix):
     return out
 
 
-def _frame_ref_s(lines):
-    """Seconds per frame-ref, "POC p ref r" -> s, from the timing report's
-    per-dispatch lines ("EXEC <pred(s)> POC p ref r,<ns>"), FULL and HALF
-    summed."""
-    out = {}
-    for ln in lines:
-        if ln.startswith("EXEC "):
-            label, ns = ln.rsplit(",", 1)
-            key = label.split(" ", 2)[2]
-            out[key] = out.get(key, 0.0) + float(ns) / 1e9
-    return out
-
-
 def run_main_path(n_ctu, tmp):
     """Phase 6: the CLI at 1080p, with its CSVs and logs in ``tmp``.
     Returns the launch counts of the run, the two CSV paths, the bytes of
@@ -445,6 +481,7 @@ def run_main_path(n_ctu, tmp):
     from vvc_affine_tpu_torch import cli, kernels, testing
     from vvc_affine_tpu_torch.runtime import frames as frames_io
     from vvc_affine_tpu_torch.runtime import reporting
+    from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
 
     orig_g, recon_g = testing.affine_gop(FW, FH, 2, seed=0)
     opath, rpath = (os.path.join(tmp, f) for f in ("orig.csv", "ref.csv"))
@@ -479,13 +516,13 @@ def run_main_path(n_ctu, tmp):
             n_rows += a.shape[0]
     want_rows = 3 * n_ctu * 2 * (201 + 284)    # 3 frame-refs
     _require(n_rows == want_rows, f"{n_rows} log rows, want {want_rows}")
-    frame_ref_s = _frame_ref_s(buf.getvalue().splitlines())
-    _require(len(frame_ref_s) == 3, f"timed frame-refs {frame_ref_s}")
+    per_ref = frame_ref_s(buf.getvalue().splitlines())
+    _require(len(per_ref) == 3, f"timed frame-refs {per_ref}")
     print(json.dumps({"main_path": {"cli_s": cli_s, "launches": launches,
                                     "log_rows": n_rows,
-                                    "frame_ref_s": frame_ref_s}}),
+                                    "frame_ref_s": per_ref}}),
           flush=True)
-    return launches, (opath, rpath), _log_bytes(prefix), frame_ref_s
+    return launches, (opath, rpath), _log_bytes(prefix), per_ref
 
 
 def _path_launches(counts):
@@ -788,30 +825,76 @@ def profile_pairs():
     pair's CUDA-event time under the profiler, the device time of every
     kernel and copy in it, the device's idle share, and the two
     hand-written kernels' launches and device time per launch."""
+    for mode in ("full", "half"):
+        row = {"mode": mode, "frame": f"{FW}x{FH}",
+               **_profile_pair(*_path_pair(mode))}
+        print(f"[profile] {json.dumps(row)}", flush=True)
+
+
+def _profile_pair(fn, args):
+    """One warm call of the pair ``fn(*args)``, then one under the
+    profiler: its CUDA-event ms, device busy ms and idle share, device
+    launches, and K1/K2 launches and device ms per launch."""
     import torch
 
-    for mode in ("full", "half"):
-        fn, args = _path_pair(mode)
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def pair():
+        start.record()
         fn(*args)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        end.record()
 
-        def pair():
-            start.record()
-            fn(*args)
-            end.record()
+    events = _device_events(pair)
+    pair_ms = start.elapsed_time(end)
+    busy_ms = sum(ev.device_time_total for ev in events) / 1e3
+    row = {"pair_ms": pair_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / pair_ms,
+           "device_launches": len(events)}
+    for name in _KERNEL_SYMBOLS:
+        row[f"{name}_launches"], row[f"{name}_ms_per_launch"] = (
+            _kernel_ms(events, name))
+    return row
 
-        events = _device_events(pair)
-        pair_ms = start.elapsed_time(end)
-        busy_ms = sum(ev.device_time_total for ev in events) / 1e3
-        row = {"mode": mode, "frame": f"{FW}x{FH}", "pair_ms": pair_ms,
-               "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / pair_ms,
-               "device_launches": len(events)}
-        for name in _KERNEL_SYMBOLS:
-            row[f"{name}_launches"], row[f"{name}_ms_per_launch"] = (
-                _kernel_ms(events, name))
-        print(f"[profile] {json.dumps(row)}", flush=True)
+
+def profile_pairs_4k():
+    """Phase 13g: one 2CP->3CP pair per mode at 3840x2160 on gop_golden's
+    first frame pair (POC 1 against POC 0, QP 32), in this process under
+    the profiler (``_profile_pair``): K1/K2 device time per launch at 4K
+    and the pair's idle share."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch import constants as C
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+    from vvc_affine_tpu_torch.tools import gop_golden
+
+    from vvc_affine_tpu_torch import kernels
+
+    w, h = 3840, 2160
+    origs, refs = gop_golden.gop(w, h, 1)
+    out = {}
+    for mode in ("full", "half"):
+        s2, s3 = (ap.PlaneSpec(mode, n_cp, w, h) for n_cp in (2, 3))
+        dev = torch.device("cuda:0")
+        args = ap.stage_inputs_from_numpy(
+            refs[0].astype(np.int32), origs[0].astype(np.int32),
+            C.lambda_for(32, 1), ap.zero_cpmvs(s2, "cpu"), dev)
+        kernels.reset_launches()
+        row = _profile_pair(ap.build_pair_stage(s2, s3, dev), args)
+        # two pairs ran (a warm one, a profiled one); the profiler's own
+        # counts may miss events of a pair this long, so the wrappers'
+        # counts are the check
+        _require(kernels.launches == _path_launches(PAIR_LAUNCHES),
+                 f"4K {mode}: two pairs launched {kernels.launches}")
+        print("[profile] " + json.dumps(
+            {"mode": mode, "frame": f"{w}x{h}", **row}), flush=True)
+        out[mode] = row
+        del args
+    torch.cuda.empty_cache()
+    return out
 
 
 def _library_window(name, x, s):
@@ -1212,6 +1295,7 @@ def _split_in_process(devices, csvs):
     from vvc_affine_tpu_torch.parallel import mesh as pmesh
     from vvc_affine_tpu_torch.runtime import frames as frames_io
     from vvc_affine_tpu_torch.runtime import reporting
+    from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
 
     orig, ref = (frames_io.read_frames_csv(p, FW, FH, 2) for p in csvs)
     pipe = AffineMEPipeline(PipelineConfig(
@@ -1233,7 +1317,7 @@ def _split_in_process(devices, csvs):
             torch.cuda.synchronize(d)
         launches = dict(kernels.launches)
         logs = _log_bytes(prefix)
-    return logs, launches, _frame_ref_s(
+    return logs, launches, frame_ref_s(
         f"{label},{sec * 1e9}" for label, sec in timing.events)
 
 
@@ -1244,6 +1328,7 @@ def _split_cli(n, csvs):
     import torch
 
     from vvc_affine_tpu_torch import cli, kernels
+    from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
 
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "split")
@@ -1258,7 +1343,7 @@ def _split_cli(n, csvs):
         launches = dict(kernels.launches)
         _require(rc == 0, f"cli.main --NumChips {n} returned {rc}")
         logs = _log_bytes(prefix)
-    return logs, launches, _frame_ref_s(buf.getvalue().splitlines())
+    return logs, launches, frame_ref_s(buf.getvalue().splitlines())
 
 
 def _two_processes(argv, tmp, stem, distinct=False, timeout=300):
@@ -1312,6 +1397,7 @@ def check_split(csvs, plane_logs, main_s):
 
     from vvc_affine_tpu_torch import cli, testing
     from vvc_affine_tpu_torch.runtime import frames as frames_io
+    from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
 
     summary = {"phase6_frame_ref_s": main_s}
     cards = torch.cuda.device_count()
@@ -1352,7 +1438,7 @@ def check_split(csvs, plane_logs, main_s):
                           if f.startswith(f"{stem}1")],
                      f"two processes on {name}: process 1 wrote logs")
             summary[f"two processes, {name}"] = {
-                "frame_ref_s": [_frame_ref_s(o.splitlines()) for o in outs],
+                "frame_ref_s": [frame_ref_s(o.splitlines()) for o in outs],
                 "wall_s": wall_s, "logs_identical": len(logs)}
             print(f"[split] two processes on {name}: process 0's 40 logs "
                   f"== phase 6's, process 1 wrote none", flush=True)
@@ -1382,6 +1468,197 @@ def check_split(csvs, plane_logs, main_s):
         print("[split] two processes at 416x240, -f 1 then -f 2 resumed: "
               "logs == the uninterrupted run's", flush=True)
     print(json.dumps({"split": summary}), flush=True)
+
+
+def _tool(name, *args, timeout):
+    """Phase 13: ``python -m vvc_affine_tpu_torch.tools.<name> args`` in a
+    child process of its own session.  Fails unless it exits 0 within
+    ``timeout`` seconds; every process of its session is killed when it
+    ends.  Returns its output (stdout and stderr) and wall seconds."""
+    import signal
+
+    t0 = time.time()
+    p = subprocess.Popen(
+        [sys.executable, "-m", f"vvc_affine_tpu_torch.tools.{name}", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    out = None
+    try:
+        out = p.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    _require(out is not None, f"tool {name}: no end within {timeout} s; "
+                              f"killed")
+    _require(p.returncode == 0,
+             f"tool {name} exited {p.returncode}:\n{out[-3000:]}")
+    return out, time.time() - t0
+
+
+def _json_line(out, key):
+    """The tool's last ``{"<key>": ...}`` line, its value."""
+    for ln in reversed(out.splitlines()):
+        if ln.startswith('{"' + key + '"'):
+            return json.loads(ln)[key]
+    raise RuntimeError(f"no {key} line in:\n{out[-2000:]}")
+
+
+def run_power_tools(csvs, plane_logs, card, tmp):
+    """Phase 13a: ``tools.power_trace`` around the 1080p -f 2 CLI on phase
+    6's CSVs, then ``tools.energy_report`` on its trace and log.  Every
+    power sample a number above 0 W, every phase's mean at most the card's
+    power limit, every EXEC window sampled, the logs phase 6's."""
+    from vvc_affine_tpu_torch.tools import energy_report as er
+    from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
+
+    trace = os.path.join(tmp, "power.csv")
+    prefix = os.path.join(tmp, "power_")
+    out, wall_s = _tool(
+        "power_trace", "--out", trace, "--", sys.executable, "-m",
+        "vvc_affine_tpu_torch.cli", "-f", "2", "-s", f"{FW}x{FH}", "-q",
+        "32", "-o", csvs[0], "-r", csvs[1], "-l", prefix, timeout=300)
+    log = os.path.join(tmp, "power_run.log")
+    with open(log, "w") as f:
+        f.write(out)
+    _require(_log_bytes(prefix) == plane_logs,
+             "the CLI under power_trace: logs differ from phase 6's")
+    rows, field = er.parse_trace(trace)
+    power = [r[3] for r in rows]
+    _require(rows and all(w is not None and w > 0 for w in power),
+             f"power samples not all above 0 W: {sorted(set(power))[:5]}")
+    limit = float(card.split(",")[1].split()[0])
+    phases = er.parse_stamps(log)
+    execs = [p for p in phases if p[0].startswith("EXEC")]
+    _require(len(execs) == 6, f"{len(execs)} EXEC windows, want 6")
+    per_phase = {}
+    for label, a, b in phases:
+        pp = er.phase_power(rows, a, b)
+        _require(pp is not None or not label.startswith("EXEC"),
+                 f"no power sample inside {label}")
+        if pp is None:
+            continue
+        _require(pp[0] <= limit, f"{label}: mean {pp[0]} W above the "
+                                 f"{limit} W limit")
+        per_phase[label] = {"seconds": b - a, "mean_w": pp[0],
+                            "energy_j": pp[1], "distinct_readings": pp[2]}
+    report, _ = _tool("energy_report", "--trace", trace, "--log", log,
+                      timeout=120)
+    for ln in report.splitlines():
+        print(f"[energy] {ln}", flush=True)
+    total = [ln for ln in report.splitlines() if ln.startswith("TOTAL_EXEC,")]
+    _require(len(total) == 1, "energy_report printed no TOTAL_EXEC line")
+    _, mean_w, energy_j, distinct, refs, per_ref = total[0].split(",")
+    _require(int(refs) == 3, f"{refs} frame-refs in the report, want 3")
+    print(f"[tools] power_trace: {len(rows)} samples of {field}, max "
+          f"{max(power)} W beside the {limit} W limit", flush=True)
+    return {"field": field, "samples": len(rows),
+            "distinct_readings": len(set(power)), "max_w": max(power),
+            "limit_w": limit, "exec_mean_w": float(mean_w),
+            "exec_energy_j": float(energy_j),
+            "joules_per_frame_ref": float(per_ref),
+            "frame_ref_s": frame_ref_s(out.splitlines()),
+            "phases": per_phase, "wall_s": wall_s}
+
+
+def run_tools(csvs, plane_logs, card):
+    """Phase 13: every measurement tool of ``vvc_affine_tpu_torch/tools``
+    in a child, as a user runs it (``python -m``), each result checked:
+    (a) power_trace + energy_report; (b) profile_stage at 1080p, FULL and
+    --half; (c) xprof_trace at 1080p, which must find K1 and K2 among the
+    device ops of one frame-ref (at most the 20 and 22 launched); (d)
+    tpu_parity at 832x480, every stage bit-identical; (e) gop_golden at 3840x2160 -f 1, byte-identical logs,
+    K1/K2 20/22 launches in the plane child and none in the gather child;
+    (f) scaling_bench at 1080p over 1, 2 and 4 shards, equal results;
+    (g) one pair per mode at 4K in this process under the profiler."""
+    import shutil
+
+    import torch
+
+    torch.cuda.empty_cache()
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        summary["power"] = run_power_tools(csvs, plane_logs, card, tmp)
+
+        for flags in ([], ["--half"]):
+            out, wall_s = _tool("profile_stage", f"{FW}x{FH}", *flags,
+                                timeout=300)
+            res = _json_line(out, "profile_stage")
+            rows = {r["piece"]: r for r in res["pieces"]}
+            _require(len(rows) == 10 and all(
+                r["event_ms"] > 0 and r["host_ms"] > 0 for r in rows.values()),
+                f"profile_stage {flags}: pieces {sorted(rows)}")
+            for piece in ("K1 warp", "K2 refine", "K2 satd only"):
+                _require(rows[piece]["device_launches"] >= 1,
+                         f"profile_stage: {piece} launched nothing")
+            for r in res["pieces"]:
+                print(f"[profile_stage] {res['mode']} {json.dumps(r)}",
+                      flush=True)
+            summary[f"profile_stage {res['mode']}"] = {"wall_s": wall_s}
+
+        xdir = os.path.join(tmp, "xprof")
+        out, wall_s = _tool("xprof_trace", f"{FW}x{FH}", "--out", xdir,
+                            timeout=300)
+        res = _json_line(out, "xprof_trace")
+        shutil.rmtree(xdir)
+        # the profiler may miss a few of a frame-ref's ~68k device
+        # events, so: found, and never more than the 20 / 22 launched
+        found = res["hand_written_launches"]
+        _require(1 <= found["K1"] <= 20 and 1 <= found["K2"] <= 22,
+                 f"xprof_trace found {found}, want 20 K1 and 22 K2")
+        for name, ms, n in res["top_ops"][:12]:
+            print(f"[xprof] {ms:.3f} ms {n} launches {name[:100]}",
+                  flush=True)
+        summary["xprof_trace"] = {"wall_s": wall_s, **{k: res[k] for k in (
+            "window_ms", "device_busy_ms", "busy_share", "device_launches",
+            "hand_written_launches", "hand_written_ms")}}
+
+        path = os.path.join(tmp, "parity.json")
+        out, wall_s = _tool("tpu_parity", "832x480", "--out", path,
+                            timeout=300)
+        res = _json_line(out, "tpu_parity")
+        _require(res["ok"] and len(res["stages"]) == 8 and set(
+            res["stages"].values()) == {"bit-identical"},
+            f"tpu_parity: {res['stages']}")
+        print(f"[tools] tpu_parity 832x480: 8 stage outputs on the card == "
+              f"the CPU golden ({wall_s:.1f} s)", flush=True)
+        summary["tpu_parity"] = {"stages": 8, "wall_s": wall_s}
+
+        path = os.path.join(tmp, "gop.json")
+        out, wall_s = _tool("gop_golden", "3840x2160", "--frames", "1",
+                            "--out", path, timeout=600)
+        res = _json_line(out, "gop_golden")
+        _require(res["verdict"] == "byte-identical"
+                 and res["n_log_files"] == 40,
+                 f"gop_golden 4K: {res['verdict']}, {res['n_log_files']} "
+                 f"logs")
+        want = {"plane": _path_launches(PAIR_LAUNCHES),
+                "gather": _path_launches({})}
+        _require(res["launches"] == want,
+                 f"gop_golden 4K launches {res['launches']}, want {want}")
+        print(f"[tools] gop_golden 3840x2160 -f 1: 40 logs byte-identical, "
+              f"K1/K2 20/22 (plane) and 0/0 (gather) ({wall_s:.1f} s)",
+              flush=True)
+        summary["gop_golden"] = {k: res[k] for k in (
+            "wall_s", "frame_ref_s", "max_memory_allocated")}
+
+        out, wall_s = _tool("scaling_bench", f"{FW}x{FH}", "--chips",
+                            "1,2,4", timeout=300)
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith('{"chips"')]
+        _require([ln["chips"] for ln in lines] == [1, 2, 4],
+                 f"scaling_bench lines {lines}")
+        _require(len({ln["results_sha256"] for ln in lines}) == 1,
+                 "scaling_bench: the shards' results differ from one "
+                 "shard's")
+        for ln in lines:
+            print(f"[scaling] {json.dumps(ln)}", flush=True)
+        summary["scaling_bench"] = {"wall_s": wall_s}
+    summary["pairs_4k"] = profile_pairs_4k()
+    print(json.dumps({"tools": summary}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -1421,6 +1698,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(2026)
     tables = {m: ap.build_tables(ap.PlaneSpec(m, 2, FW, FH), dev)
               for m in ("full", "half")}
+    check_repl_tables(tables)
     orig_np, ref_np = (f[0].astype(np.int32).reshape(-1)
                        for f in testing.affine_gop(FW, FH, 1, seed=3))
     ref = torch.as_tensor(ref_np, device=dev)
@@ -1450,6 +1728,7 @@ def main(argv=None) -> int:
         run_gather_path(csvs, plane_logs, args.profile)
         check_native_ingest(csvs)
         check_split(csvs, plane_logs, main_s)
+        run_tools(csvs, plane_logs, card)
 
     print(f"[total] {time.time() - t_start:.1f} s", flush=True)
     print(card, flush=True)

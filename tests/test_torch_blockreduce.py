@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from vvc_affine_tpu.models import affine_plane as jap
 from vvc_affine_tpu.ops import blockreduce as jbr
+from vvc_affine_tpu.ops import blockstat as jbs
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.ops import blockreduce as tbr
 
@@ -138,3 +139,35 @@ def test_replication_flags_refuse_masks_off_the_block_grid():
     border[0, 8:24, 10] = 0
     border[0, 8:24, 8] = tbr.LEFT
     assert int(tbr.replication_flags(border)[0, 2:6, 2].min()) == tbr.LEFT
+
+
+@pytest.mark.parametrize("mode", ["full", "half"])
+def test_reduce_blocks_plain_matches_blockstat(mode):
+    """K2's plain version against the JAX package's ``ops/blockstat.py``
+    (the exact MXU-form block sums behind ``PlaneSpec.mxu_reduce``):
+    ``satd_blocks`` of every (CTU, bin) plane, and ``block_sums_i64`` of
+    the five moment products of the replicated Sobel gradients
+    (``_sobel_replicated`` with each bin's masks), equal everywhere.  The
+    port keeps no copy of blockstat: on the card K2 computes these sums in
+    int32."""
+    jt = jap.build_tables(jap.PlaneSpec(mode, 2, FW, FH))
+    pred, orig = _inputs(jt.n_ctus, jt.n_bins, seed=20 + len(mode))
+    satd, moms = tbr.reduce_blocks_plain(
+        torch.from_numpy(pred), torch.from_numpy(orig),
+        torch.from_numpy(jt.border_packed), True)
+    orig_j = jnp.asarray(orig)
+    np.testing.assert_array_equal(
+        satd.numpy(),
+        np.asarray(jbs.satd_blocks(orig_j[:, None], jnp.asarray(pred))))
+    for bi in range(jt.n_bins):
+        plane = jnp.asarray(pred[:, bi].astype(np.int32))
+        gx, gy = jap._sobel_replicated(
+            plane, jt.bin_row_top[bi], jt.bin_row_bot[bi],
+            jt.bin_col_left[bi], jt.bin_col_right[bi])
+        err = orig_j - plane
+        prods = jnp.stack([gx * gx, gx * gy, gy * gy, gx * err, gy * err],
+                          axis=1)
+        want = np.asarray(jbs.block_sums_i64(prods))
+        assert want.dtype == np.int64
+        np.testing.assert_array_equal(moms[:, bi].numpy().astype(np.int64),
+                                      want)

@@ -194,6 +194,39 @@ def test_cli_refuses_unported_flags(monkeypatch, capsys):
             args.ProcessId) == (2, "h:1", 4, 3)
 
 
+@pytest.mark.parametrize("index", [1, -1])
+def test_cli_device_index_out_of_range(monkeypatch, capsys, index):
+    """``--DeviceIndex`` past the cards (or negative) prints the JAX CLI's
+    message and exits with code 1 before it reads a frame."""
+    base = ["-f", "1", "-s", "128x128", "-q", "32", "-o", "x", "-r", "y"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert torch_cli.main(base + ["--DeviceIndex", str(index)]) == 1
+    assert (f"DeviceIndex {index} out of range (1 devices)"
+            in capsys.readouterr().err)
+
+
+def test_checkpoint_clear_matches_jax(tmp_path):
+    """``clear()`` drops the marker (a cleared marker reads 0, and a second
+    clear is harmless), as the JAX package's; a follower's clear changes
+    nothing, as there."""
+    from vvc_affine_tpu.runtime import checkpoint as jax_checkpoint
+
+    from vvc_affine_tpu_torch.runtime.checkpoint import FollowerCheckpoint
+
+    for manager in (CheckpointManager, jax_checkpoint.CheckpointManager):
+        ckpt = manager(str(tmp_path / manager.__module__), None)
+        ckpt.mark_frame_done(3)
+        assert ckpt.completed_poc() == 3
+        ckpt.clear()
+        assert ckpt.completed_poc() == 0
+        ckpt.clear()
+    for follower in (FollowerCheckpoint, jax_checkpoint.FollowerCheckpoint):
+        f = follower(2)
+        f.clear()
+        assert f.completed_poc() == 2
+
+
 def _poc_rows(logs):
     """POC column of every row of every log (headers skipped)."""
     return sorted({int(ln.split(b",", 1)[0]) for data in logs.values()

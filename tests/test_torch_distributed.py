@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from vvc_affine_tpu_torch.runtime import distributed as dist
 
@@ -96,3 +97,18 @@ def test_initialize_raises_without_a_group(tmp_path):
     assert "timed out" in r.stderr, r.stderr[-2000:]
     with pytest.raises(ValueError, match="process id 2"):
         dist.initialize(f"127.0.0.1:{port}", 2, 2)
+
+
+def test_default_meshes_take_every_card(monkeypatch):
+    """``make_mesh()`` and ``global_mesh()`` without devices: one shard on
+    each visible card, ``cuda:0`` to ``cuda:<count-1>``, as the JAX
+    package's default to every device (a CPU mesh only when CPU devices
+    are given)."""
+    from vvc_affine_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    cards = tuple(torch.device("cuda", i) for i in range(3))
+    assert pmesh.make_mesh() == pmesh.Mesh(cards, 3, 0)
+    assert dist.global_mesh() == pmesh.Mesh(cards, 3, 0)
+    assert pmesh.make_mesh(["cpu"] * 2).devices == (torch.device("cpu"),) * 2

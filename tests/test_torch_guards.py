@@ -22,7 +22,10 @@ from vvc_affine_tpu_torch.models import affine_me as tme
 from vvc_affine_tpu_torch.models import affine_plane as tap
 from vvc_affine_tpu_torch.models import pipeline
 from vvc_affine_tpu_torch.parallel import mesh as pmesh
-from vvc_affine_tpu_torch.tools import mosaic_probe
+from vvc_affine_tpu_torch.tools import (gop_golden, mosaic_probe,
+                                        power_trace, profile_stage,
+                                        scaling_bench, tpu_parity,
+                                        xprof_trace)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,12 +50,14 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
+    """Nor the JAX repository's ``tools/`` (the port's tools keep their
+    own copies of what they need from it)."""
     files = _port_files()
     assert len(files) > 20
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "vvc_affine_tpu"), \
+            assert top not in ("jax", "jaxlib", "vvc_affine_tpu", "tools"), \
                 f"{os.path.relpath(path, _REPO)} imports {name}"
 
 
@@ -89,8 +94,17 @@ def test_entry_points_refuse_the_cpu_without_a_card(no_cuda, tmp_path):
         cli.main(args + ["--Engine", "gather"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mosaic_probe.main([])
+    # the measurement tools (energy_report reads files only: no device)
+    for tool, argv in ((profile_stage, []), (xprof_trace, []),
+                       (tpu_parity, []), (gop_golden, []),
+                       (scaling_bench, []),
+                       (power_trace, ["--", "true"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmesh.make_mesh(["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.make_mesh()
     # asking for the CPU is the one way to run there
     assert tap.zero_cpmvs(s2, "cpu").device.type == "cpu"
     assert tme.zero_cpmvs(g2, "cpu").device.type == "cpu"

@@ -173,6 +173,28 @@ def test_build_tables_match_jax(mode, fw, fh):
             assert torch.equal(a, b) and a.dtype == b.dtype, f
 
 
+@pytest.mark.parametrize("mode", ["full", "half"])
+def test_replication_flags_are_a_host_table(mode, monkeypatch):
+    """K2's flags are built with the other tables on the host
+    (``_tables_numpy``) and moved to the device as they are: building the
+    tables derives nothing on the device."""
+    spec = tap.PlaneSpec(mode, 2, 200, 136)
+    d = tap._tables_numpy(spec)
+    assert isinstance(d["repl"], np.ndarray) and d["repl"].dtype == np.uint8
+    np.testing.assert_array_equal(d["repl"], tbr.replication_flags(
+        torch.from_numpy(d["border_packed"])).numpy())
+    assert d["repl"].any()
+
+    def refuse(_):
+        raise AssertionError("flags derived while tables were built")
+
+    monkeypatch.setattr(tbr, "replication_flags", refuse)
+    marked = {**d, "repl": d["repl"] ^ 16}
+    t = tap.tables_from_numpy(marked, "cpu")
+    assert t.repl.dtype == torch.uint8
+    np.testing.assert_array_equal(t.repl.numpy(), marked["repl"])
+
+
 @pytest.mark.parametrize("mode,fw,fh", CASES)
 def test_padded_tables_match_jax(mode, fw, fh):
     """The port's tables padded by two CTUs equal the JAX package's padded

@@ -16,8 +16,9 @@ device.  The CSV ingest and the decision-log writer are native C++
 
 Entry points (``models.affine_plane.build_stage``/``build_pair_stage``,
 ``models.affine_me.build_stage``, ``models.pipeline.AffineMEPipeline``,
-``cli.main`` and ``tools.mosaic_probe.main``) run on ``cuda`` unless the
-caller passes ``device="cpu"``; with no card they raise.
+``parallel.mesh.make_mesh``, ``cli.main`` and the ``main`` of every tool in
+``tools/`` but ``energy_report``, which reads files only) run on ``cuda``
+unless the caller passes ``device="cpu"``; with no card they raise.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ drive the same run shape:
     python -m vvc_affine_tpu_torch.cli -f 2 -s 1920x1080 -q 32 \
         -o original_frames.csv -r reconstructed_frames.csv -l decisions_log
 
-Runs on ``cuda:<DeviceIndex>``; ``--Engine gather`` runs the merged-group
+Runs on ``cuda:<DeviceIndex>``, and exits with code 1 when there is no
+such card; ``--Engine gather`` runs the merged-group
 engine (``models/affine_me.py``) in place of the plane engine, with the same
 decision logs.  ``--NumChips N`` splits the CTU axis over N cards from
 ``--DeviceIndex`` on (``parallel/mesh.py``), and exits with code 1 when
@@ -134,6 +135,11 @@ def main(argv=None, device=None) -> int:
         else:
             mesh = pmesh.make_mesh(devices)
     elif device is None:
+        have = torch.cuda.device_count()
+        if torch.cuda.is_available() and not 0 <= args.DeviceIndex < have:
+            print(f"DeviceIndex {args.DeviceIndex} out of range "
+                  f"({have} devices)", file=sys.stderr)
+            return 1
         device = f"cuda:{args.DeviceIndex}"
 
     cfg = PipelineConfig(

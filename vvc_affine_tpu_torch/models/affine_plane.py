@@ -102,8 +102,8 @@ class PlaneTables(NamedTuple):
 
 
 # PlaneTables fields that are tensors (built from numpy arrays)
-_TENSOR_FIELDS = ("border_packed", "slab_active", "abs_x", "abs_y", "within",
-                  "cu_w", "cu_h", "ctu_x", "ctu_y")
+_TENSOR_FIELDS = ("border_packed", "repl", "slab_active", "abs_x", "abs_y",
+                  "within", "cu_w", "cu_h", "ctu_x", "ctu_y")
 # PlaneTables fields that lead with the CTU axis (``ctu_rows``)
 _CTU_FIELDS = ("slab_active", "abs_x", "abs_y", "within", "ctu_x", "ctu_y")
 
@@ -132,6 +132,14 @@ def slab_activity(mode: str, within: np.ndarray) -> np.ndarray:
             rowcover[:, b0y:b0y + sh] |= w_cu[:, j:j + 1]
         act[:, int(bin_of[ci])] |= rowcover.reshape(n_ctu, 16, 2).any(-1)
     return act.astype(np.int32)
+
+
+def host_replication_flags(border_packed: np.ndarray) -> np.ndarray:
+    """K2's replication flags uint8 [n_bins, NB, NB] of the host masks
+    (``ops.blockreduce.replication_flags`` run on the CPU): a table of the
+    layout, built before anything moves to the card."""
+    return blockreduce_ops.replication_flags(
+        torch.from_numpy(np.asarray(border_packed, np.int32))).numpy()
 
 
 def _tables_numpy(spec: PlaneSpec, n_ctu_pad: int = 0) -> dict:
@@ -174,7 +182,7 @@ def _tables_numpy(spec: PlaneSpec, n_ctu_pad: int = 0) -> dict:
         n_ctu_y=grid.ctu_rows, n_ctu_x=grid.ctu_cols, n_ctus=len(ctu_x),
         n_cus=lay.cus_per_ctu, n_cls=len(lay.classes),
         n_bins=len(bins), bins=bins, bin_of=bin_of,
-        border_packed=border,
+        border_packed=border, repl=host_replication_flags(border),
         slab_active=slab_activity(spec.mode, within),
         strides=lay.return_strides, cls=cls,
         abs_x=abs_x.astype(np.int32), abs_y=abs_y.astype(np.int32),
@@ -230,15 +238,19 @@ def tables_from_numpy(d: dict, device) -> PlaneTables:
     ``d`` maps field names to ints, tuples and numpy arrays (the JAX
     engine's ``PlaneTables._asdict()`` or ``_tables_numpy``); fields the
     port does not use are ignored.  The class geometry (``cls``) is the
-    port's own for the mode that ``n_cls`` implies.
+    port's own for the mode that ``n_cls`` implies.  K2's replication flags
+    (``repl``) are host tables like the rest: taken from ``d``, or for the
+    JAX tables, which have none, derived from their host masks
+    (``host_replication_flags``).
     """
     mode = {12: "full", 24: "half"}[int(d["n_cls"])]
     cls = P.plane_layout(mode)
+    if "repl" not in d:
+        d = {**d, "repl": host_replication_flags(d["border_packed"])}
     kw = {k: d[k] for k in PlaneTables._fields
-          if k not in _TENSOR_FIELDS + ("cls", "cls_t", "bin_of", "repl")}
+          if k not in _TENSOR_FIELDS + ("cls", "cls_t", "bin_of")}
     kw.update({k: torch.as_tensor(np.asarray(d[k]), device=device)
                for k in _TENSOR_FIELDS})
-    kw["repl"] = blockreduce_ops.replication_flags(kw["border_packed"])
     kw["bin_of"] = np.asarray(d["bin_of"], np.int32)
     kw["bins"] = tuple(tuple(int(c) for c in b) for b in d["bins"])
     kw["strides"] = tuple(int(s) for s in d["strides"])

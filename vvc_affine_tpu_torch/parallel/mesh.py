@@ -33,7 +33,7 @@ telemetry and its psums, ahead-of-time compilation (``precompile``) and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -65,8 +65,13 @@ class ProcessBlock(NamedTuple):
     n_ctus: int
 
 
-def make_mesh(devices: Sequence) -> Mesh:
-    """A one-process mesh with one shard per entry of ``devices``."""
+def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
+    """A one-process mesh with one shard per entry of ``devices``; by
+    default every visible card, ``cuda:0`` to ``cuda:<count-1>`` (raises
+    when there is none).  A CPU mesh takes CPU devices, given."""
+    if devices is None:
+        resolve_device("cuda:0")         # raises when there is no card
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devs = tuple(resolve_device(d) for d in devices)
     if not devs:
         raise ValueError("a mesh needs at least one device")

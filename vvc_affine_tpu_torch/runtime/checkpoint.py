@@ -72,6 +72,13 @@ class CheckpointManager:
                 with open(path, "w") as f:
                     f.writelines(kept)
 
+    def clear(self) -> None:
+        """Remove the marker: the next run starts from the first frame."""
+        try:
+            os.remove(self._path)
+        except FileNotFoundError:
+            pass
+
 
 class FollowerCheckpoint:
     """The checkpoint of a process other than process 0 in a run of several
@@ -94,4 +101,7 @@ class FollowerCheckpoint:
         pass
 
     def prune_logs_after(self, poc: int) -> None:
+        pass
+
+    def clear(self) -> None:
         pass

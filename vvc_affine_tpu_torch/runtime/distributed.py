@@ -38,7 +38,7 @@ Usage (one command per process):
 from __future__ import annotations
 
 import datetime
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -98,9 +98,10 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def global_mesh(devices: Sequence) -> pmesh.Mesh:
+def global_mesh(devices: Optional[Sequence] = None) -> pmesh.Mesh:
     """The CTU split over every process's shards: this process runs one
-    shard on each of ``devices``, and every process passes as many, so the
+    shard on each of ``devices`` (by default every visible card,
+    ``parallel.mesh.make_mesh``), and every process passes as many, so the
     global shard order is rank-major."""
     local = pmesh.make_mesh(devices)
     n = len(local.devices)
