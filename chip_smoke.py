@@ -24,17 +24,34 @@ Phases, in order (any failure exits non-zero before the result line):
    in-frame CUs (the only outputs the engine reads);
 5. the port on the card (kernels, through the entry points' default
    device) against the port on the CPU (plain versions): one 2CP->3CP pair
-   per mode at 416x240, bit-identical costs and CPMVs;
+   per mode at 416x240, called twice on the card (the warm-up that
+   captures the pair's CUDA graph, then a replay), each bit-identical to
+   the CPU's costs and CPMVs;
 6. the main path: ``cli.main`` at 1920x1080, -f 2, -q 32 on synthetic
    affine-motion content, with the launch counts zeroed just before and
    read just after (K1 must launch 60 times, K2 66), and the decision logs
-   checked for row count, shape and range;
+   checked for row count, shape and range.  Every pair on the card is one
+   CUDA graph (``runtime/graphs.py``): the first frame-ref warms up and
+   captures, the other two replay; the run's peak device memory;
+6b. the graphs against the eager loop they capture: (a) per mode at
+   1920x1080, a new captured pair fed four different input sets in turn
+   (one warm-up, three replays) and the 2CP and 3CP stages likewise, every
+   output bit-identical to the eager loop's (``eager_pair_fn``,
+   ``eager_stage_fn``) on the same set, also after the later replays, and
+   each call launching 10 K1 and 11 K2; (b) the 1080p -f 2 pipeline with
+   each pair run eagerly: its 40 logs byte-identical to phase 6's, K1/K2
+   60/66; (c) a ``graph`` JSON line: seconds per frame-ref of the eager run
+   and of phase 6 (its first, capturing frame-ref apart), capture seconds
+   per pair and stage, K1/K2 launches, device memory of both runs, and
+   with ``--profile`` the device busy share of a replayed and of an eager
+   frame-ref (phase 8b);
 7. per-kernel times at the main path's 1080p shapes (CUDA events over
    bare back-to-back launches, and over the whole wrapper), their bounds,
    and the plain versions' times; and ``ms_path``: every K1 and K2 launch
-   of one 1080p pair per mode of the main path, captured and timed the
-   same way, beside its bound, with the loaded kernels' registers, local
-   memory and shared memory (``kernels.attributes``).  The FULL shapes go
+   of one 1080p pair per mode of the main path (the eager pair, whose
+   launches carry their inputs), captured and timed the same way, beside
+   its bound, with the loaded kernels' registers, local memory and shared
+   memory (``kernels.attributes``).  The FULL shapes go
    into the one ``kernels`` JSON line, the HALF shapes into ``[time]``
    lines, the per-launch times into ``[path]`` lines.  With ``--ab DIR``:
    the ``warp.cu`` and ``blockreduce.cu`` in DIR (another version of
@@ -43,9 +60,9 @@ Phases, in order (any failure exits non-zero before the result line):
    timed in turns (other, this, this, other; ``[ab]`` lines);
 8. with ``--profile`` only: under torch.profiler, each kernel's device
    time per launch on the phase-7 inputs, and per mode one 1080p pair on
-   the main path's content — its device-busy time, idle share, device
-   launches and the two kernels' device time per launch (``[profile]``
-   lines);
+   the main path's content, replayed and eager — its device-busy time,
+   idle share, device launches and the two kernels' device time per
+   launch (``[profile]`` lines);
 9. the probe path: ``tools.mosaic_probe.main`` with the launch counts
    zeroed just before and read just after (each of the six probe kernels
    once), then each probe kernel against its plain version and the numpy
@@ -54,9 +71,11 @@ Phases, in order (any failure exits non-zero before the result line):
    into the ``kernels`` line;
 10. the CLI's single-card flags at 416x240, -f 2: an uninterrupted run with
    -l; a run with -f 1 and then -f 2 on one --CheckpointDir, whose logs must
-   equal the uninterrupted run's byte for byte; a run with --DeviceTrace and
-   --MemoryReport, whose trace must vary and whose trace and report must
-   show a peak above the bytes the earlier phases left allocated.  Each
+   equal the uninterrupted run's byte for byte; a run with --PerPredTiming
+   (each stage its own graph, captured while the trace samples),
+   --DeviceTrace and --MemoryReport, whose logs must equal the
+   uninterrupted run's, whose trace must vary and whose trace and report
+   must show a peak above the bytes the earlier phases left allocated.  Each
    run's K1/K2 launches are counted as in phase 6;
 11. the gather engine (``--Engine gather``, plain PyTorch ops, no kernel of
    its own): (a) its ops on the card against the CPU, tolerance 0 —
@@ -107,9 +126,10 @@ Phases, in order (any failure exits non-zero before the result line):
    launched (the profiler may miss a few of its ~68k device events;
    ``[xprof]`` lines); (d) ``tpu_parity`` at 832x480: every stage's costs and CPMVs on
    the card bit-identical to the CPU golden of its child; (e)
-   ``gop_golden`` at 3840x2160 -f 1 (510 CTUs): the plane and the gather
-   CLI's 40 logs byte-identical, K1/K2 launched 20/22 times in the plane
-   child and 0/0 in the gather child; (f) ``scaling_bench`` at 1080p over
+   ``gop_golden`` at 3840x2160 -f 2 (510 CTUs, 3 frame-refs: the first
+   captures the graphs, two replay): the plane and the gather CLI's 40
+   logs byte-identical, K1/K2 launched 60/66 times in the plane child and
+   0/0 in the gather child; (f) ``scaling_bench`` at 1080p over
    1, 2 and 4 shards (card 0 repeated where there are fewer cards): the
    same result digest for every count (``[scaling]`` lines); (g) in this
    process, one pair per mode at 3840x2160 on gop_golden's first frame
@@ -215,7 +235,8 @@ def _valid_slots(t):
     for ci, cp_tab in enumerate(t.cls):
         s = t.strides[ci]
         w = t.within[:, s:s + cp_tab.num_cus].to(torch.int32)
-        cover = P.spread_cu_to_slots(w, cp_tab).bool()
+        cover = P.spread_cu_to_slots(w, cp_tab,
+                                     t.cls_t[ci].cu_index).bool()
         out[:, int(t.bin_of[ci])] |= cover & t.cls_t[ci].slot_valid
     return out
 
@@ -450,13 +471,17 @@ def check_card_vs_cpu():
                                               z.cpu(), d)
             _require(args[0].device.type == ("cpu" if d else "cuda"),
                      f"inputs on {args[0].device} for device={d}")
-            outs.append([o.cpu() for o in
-                         ap.build_pair_stage(*specs, device=d)(*args)])
-        for name, a, b in zip(("cost2", "cpmvs2", "cost3", "cpmvs3"), *outs):
-            _require(a.dtype == b.dtype and torch.equal(a, b),
-                     f"{mode} {name}: card differs from CPU")
-        print(f"[stage] {mode} pair at {SMALL_W}x{SMALL_H}: card == CPU "
-              f"(costs int64, CPMVs int32)", flush=True)
+            fn = ap.build_pair_stage(*specs, device=d)
+            # on the card: the warm-up (eager) call, then a graph replay
+            for _ in range(1 if d else 2):
+                outs.append([o.cpu() for o in fn(*args)])
+        for card in outs[:-1]:
+            for name, a, b in zip(("cost2", "cpmvs2", "cost3", "cpmvs3"),
+                                  card, outs[-1]):
+                _require(a.dtype == b.dtype and torch.equal(a, b),
+                         f"{mode} {name}: card differs from CPU")
+        print(f"[stage] {mode} pair at {SMALL_W}x{SMALL_H}: card (warm-up "
+              f"and replay) == CPU (costs int64, CPMVs int32)", flush=True)
 
 
 def _log_bytes(prefix):
@@ -472,9 +497,12 @@ def _log_bytes(prefix):
 
 
 def run_main_path(n_ctu, tmp):
-    """Phase 6: the CLI at 1080p, with its CSVs and logs in ``tmp``.
-    Returns the launch counts of the run, the two CSV paths, the bytes of
-    every decision log and the seconds per frame-ref."""
+    """Phase 6: the CLI at 1080p, with its CSVs and logs in ``tmp``.  The
+    process's first 1080p run: its first frame-ref warms up and captures
+    the pair graphs, the other two replay them.  Returns the launch counts
+    of the run, the two CSV paths, the bytes of every decision log, the
+    seconds per frame-ref and the run's device memory (bytes allocated at
+    its start and end, its peaks)."""
     import numpy as np
     import torch
 
@@ -489,6 +517,8 @@ def run_main_path(n_ctu, tmp):
     frames_io.write_frames_csv(rpath, recon_g)
     prefix = os.path.join(tmp, "log")
     torch.cuda.synchronize()
+    memory = {"start_bytes": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.time()
     buf = io.StringIO()
@@ -497,6 +527,9 @@ def run_main_path(n_ctu, tmp):
                        "-o", opath, "-r", rpath, "-l", prefix])
     torch.cuda.synchronize()
     cli_s = time.time() - t0
+    memory.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                  peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                  end_bytes=torch.cuda.memory_allocated())
     launches = dict(kernels.launches)
     _require(rc == 0, f"cli.main returned {rc}")
     _require(launches == _path_launches(
@@ -520,9 +553,98 @@ def run_main_path(n_ctu, tmp):
     _require(len(per_ref) == 3, f"timed frame-refs {per_ref}")
     print(json.dumps({"main_path": {"cli_s": cli_s, "launches": launches,
                                     "log_rows": n_rows,
-                                    "frame_ref_s": per_ref}}),
+                                    "frame_ref_s": per_ref,
+                                    "memory": memory}}),
           flush=True)
-    return launches, (opath, rpath), _log_bytes(prefix), per_ref
+    return launches, (opath, rpath), _log_bytes(prefix), per_ref, memory
+
+
+def _graph_inputs():
+    """Four 1080p stage input sets on the card, each different: frame pairs
+    of ``affine_gop(seed=4)`` at their POC's lambda (QP 32), zero CPMVs."""
+    from vvc_affine_tpu_torch import constants as C
+    from vvc_affine_tpu_torch import testing
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
+    orig, recon = testing.affine_gop(FW, FH, 3, seed=4)
+    z = ap.zero_cpmvs(ap.PlaneSpec("full", 2, FW, FH), "cpu")
+    zh = ap.zero_cpmvs(ap.PlaneSpec("half", 2, FW, FH), "cpu")
+    out = []
+    for o, r, poc in ((0, 0, 1), (1, 1, 2), (1, 0, 2), (2, 2, 3)):
+        args = ap.stage_inputs_from_numpy(recon[r], orig[o],
+                                          C.lambda_for(32, poc), z, None)
+        out.append({"full": args, "half": (*args[:3], zh.cuda())})
+    return out
+
+
+def _same_outputs(name, got, want):
+    import torch
+
+    _require(len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        for g, w in zip(got, want)), f"{name}: graph differs from eager")
+
+
+def check_graphs():
+    """Phase 6b(a): per mode at 1920x1080, one new captured pair
+    (``runtime.graphs.Graphed`` around ``affine_plane.eager_pair_fn``) fed
+    four input sets in turn (the first call warms up and captures, three
+    replay), each output bit-identical to the eager pair's on the same set,
+    every call launching the eager pair's 10 K1 and 11 K2; all four calls'
+    outputs checked again at the end (an output aliasing the graph's own
+    would have been overwritten).  Then ``build_stage``'s 2CP and 3CP
+    stages the same way, 3CP on the 2CP CPMVs of each set.  Returns the
+    capture seconds per mode."""
+    import torch
+
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+    from vvc_affine_tpu_torch.runtime import graphs
+
+    dev = torch.device("cuda:0")
+    sets = _graph_inputs()
+    one = _path_launches({k: v // 2 for k, v in PAIR_LAUNCHES.items()})
+    capture_s = {}
+    for mode in ("full", "half"):
+        s2, s3 = (ap.PlaneSpec(mode, n, FW, FH) for n in (2, 3))
+        eager = ap.eager_pair_fn(s2, s3, dev)
+        pair = graphs.Graphed(eager, dev, eager.check)
+        stages = {n: (ap.eager_stage_fn(s, dev),
+                      graphs.Graphed(ap.eager_stage_fn(s, dev), dev))
+                  for n, s in ((2, s2), (3, s3))}
+        kept = []
+        for i, inputs in enumerate(sets):
+            args = inputs[mode]
+            counts = []
+            for fn in (pair, eager):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                counts.append(dict(kernels.launches))
+                kept.append(out)
+            _require(counts == [one, one], f"{mode} set {i}: launches "
+                     f"{counts}, want {one} per call")
+            _same_outputs(f"{mode} pair, set {i}", *kept[-2:])
+            prev = args[3]
+            for n in (2, 3):
+                e, g = stages[n]
+                want = e(*args[:3], prev)
+                _same_outputs(f"{mode} {n}CP stage, set {i}",
+                              g(*args[:3], prev), want)
+                prev = want[1]
+        for i in range(len(sets)):
+            _same_outputs(f"{mode} pair, set {i}, kept",
+                          *kept[2 * i:2 * i + 2])
+        _require(pair.replays == 3 and stages[3][1].replays == 3,
+                 f"{mode}: {pair.replays} pair replays, want 3")
+        capture_s[mode] = {"pair": pair.capture_s,
+                           "2cp": stages[2][1].capture_s,
+                           "3cp": stages[3][1].capture_s}
+        print(f"[graph] {mode} 1920x1080: 4 input sets, 3 replays, pair and "
+              f"2CP/3CP stages bit-identical to the eager loop; capture "
+              f"{pair.capture_s:.3f} s (pair)", flush=True)
+    return capture_s
 
 
 def _path_launches(counts):
@@ -577,20 +699,27 @@ def _path_inputs(mode):
                                       z, None)
 
 
-def _path_pair(mode):
-    """The main path's first 1080p pair of one mode (``_path_inputs``).
-    Returns (fn, args)."""
+def _path_pair(mode, eager=False):
+    """The main path's first 1080p pair of one mode (``_path_inputs``): the
+    pair as the main path runs it (a CUDA graph) or, with ``eager``, its
+    eager loop (``affine_plane.eager_pair_fn``).  Returns (fn, args)."""
+    import torch
+
     from vvc_affine_tpu_torch.models import affine_plane as ap
 
     specs = (ap.PlaneSpec(mode, 2, FW, FH), ap.PlaneSpec(mode, 3, FW, FH))
+    if eager:
+        return (ap.eager_pair_fn(*specs, torch.device("cuda:0")),
+                _path_inputs(mode))
     return ap.build_pair_stage(*specs), _path_inputs(mode)
 
 
 def capture_path_launches():
     """The arguments of every K1 and K2 launch of one 1080p pair per mode
     on the main path's content, captured by wrapping the two bind
-    functions for the length of the pair.  Returns {(mode, kernel): [args,
-    ...]} with every tensor argument cloned."""
+    functions for the length of the pair.  The eager pair: a graph's
+    capture binds its launches with inputs that hold no data yet.  Returns
+    {(mode, kernel): [args, ...]} with every tensor argument cloned."""
     import torch
 
     from vvc_affine_tpu_torch.ops import blockreduce as br
@@ -604,7 +733,7 @@ def capture_path_launches():
     binds = {"warp": (wp, "bind_warp"),
              "blockreduce": (br, "bind_reduce_blocks")}
     for mode in ("full", "half"):
-        fn, args = _path_pair(mode)
+        fn, args = _path_pair(mode, eager=True)
         saved = {k: getattr(mod, name) for k, (mod, name) in binds.items()}
         for k, (mod, name) in binds.items():
             path[mode, k] = []
@@ -821,14 +950,23 @@ def profile_kernels(bound, n=20):
 
 def profile_pairs():
     """Phase 8b: where a 1080p 2CP->3CP pair's time goes, per mode, on the
-    main path's content (``_path_pair``: the main path's first pair): the
-    pair's CUDA-event time under the profiler, the device time of every
-    kernel and copy in it, the device's idle share, and the two
-    hand-written kernels' launches and device time per launch."""
-    for mode in ("full", "half"):
-        row = {"mode": mode, "frame": f"{FW}x{FH}",
-               **_profile_pair(*_path_pair(mode))}
-        print(f"[profile] {json.dumps(row)}", flush=True)
+    main path's content (``_path_pair``: the main path's first pair), as a
+    graph replay and as the eager loop: the pair's CUDA-event time under
+    the profiler, the device time of every kernel and copy in it, the
+    device's idle share, and the two hand-written kernels' launches and
+    device time per launch.  Returns {run: the busy share of one
+    frame-ref (both modes' pairs)}."""
+    share = {}
+    for run in ("replayed", "eager"):
+        busy = pair = 0.0
+        for mode in ("full", "half"):
+            row = {"mode": mode, "frame": f"{FW}x{FH}", "run": run,
+                   **_profile_pair(*_path_pair(mode, run == "eager"))}
+            busy += row["device_busy_ms"]
+            pair += row["pair_ms"]
+            print(f"[profile] {json.dumps(row)}", flush=True)
+        share[run] = busy / pair
+    return share
 
 
 def _profile_pair(fn, args):
@@ -1035,13 +1173,19 @@ def run_single_card_flags():
         summary["resumed_logs_identical"] = len(want)
 
         # earlier phases leave tensors allocated: the trace and the report
-        # must show this run's own allocations above that baseline
+        # must show this run's own allocations above that baseline.  With
+        # --PerPredTiming the four stages are graphs of their own, captured
+        # here while the trace's thread reads the allocator
         trace = os.path.join(tmp, "trace.csv")
+        c = os.path.join(tmp, "z")
         torch.cuda.synchronize()
         baseline = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         out, summary["trace_run"] = drive(
-            ["-f", "2"] + base + ["--DeviceTrace", trace, "--MemoryReport"], 3)
+            ["-f", "2"] + base + ["-l", c, "--PerPredTiming", "--DeviceTrace",
+                                  trace, "--MemoryReport"], 3)
+        _require(_log_bytes(c) == want, "the --PerPredTiming run's logs "
+                                        "differ from the uninterrupted run's")
         header, rows = _read_trace(trace)
         _require(header == "t_epoch,bytes_in_use,peak_bytes_in_use",
                  f"trace header {header!r}")
@@ -1283,13 +1427,17 @@ def check_native_ingest(csvs):
             "plain_s": t2 - t1}), flush=True)
 
 
-def _split_in_process(devices, csvs):
-    """Phase 12a, one layout: the 1080p -f 2 pipeline split over
-    ``devices``, logs through ``reporting``.  Returns the logs, the launch
-    counts and the seconds per frame-ref."""
+def _pipeline_run(csvs, devices=None, eager=False):
+    """The 1080p -f 2 pipeline on phase 6's CSVs, logs through
+    ``reporting``: on card 0, or split over ``devices`` (phase 12a); with
+    ``eager``, each pair run by its eager loop (``eager_pair_fn``) in place
+    of its graph (phase 6b).  Returns the logs, the launch counts, the
+    seconds per frame-ref and the device memory of the run (bytes at its
+    start, its peak)."""
     import torch
 
     from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.models import affine_plane as ap
     from vvc_affine_tpu_torch.models.pipeline import (AffineMEPipeline,
                                                       PipelineConfig)
     from vvc_affine_tpu_torch.parallel import mesh as pmesh
@@ -1298,27 +1446,80 @@ def _split_in_process(devices, csvs):
     from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
 
     orig, ref = (frames_io.read_frames_csv(p, FW, FH, 2) for p in csvs)
+    dev = torch.device("cuda:0")
     pipe = AffineMEPipeline(PipelineConfig(
-        FW, FH, 32, mesh=pmesh.make_mesh(devices)))
+        FW, FH, 32, device=dev,
+        mesh=pmesh.make_mesh(devices) if devices else None))
+    if eager:
+        pipe.pairs = {m: ap.eager_pair_fn(ap.PlaneSpec(m, 2, FW, FH),
+                                          ap.PlaneSpec(m, 3, FW, FH), dev)
+                      for m in pipe.pairs}
+    cards = set(devices or [dev])
     with tempfile.TemporaryDirectory() as tmp:
-        prefix = os.path.join(tmp, "split")
+        prefix = os.path.join(tmp, "run")
 
         def on_result(r):
             reporting.report_results(prefix, r.pred, FW, r.costs.cpu().numpy(),
                                      r.cpmvs.cpu().numpy(), r.poc, r.ref_idx)
 
         timing = reporting.Timing()
-        for d in set(devices):
+        for d in cards:
             torch.cuda.synchronize(d)
+        memory = {"start_bytes": torch.cuda.memory_allocated(dev)}
+        torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             pipe.encode(orig, ref, on_result=on_result, timing=timing)
-        for d in set(devices):
+        for d in cards:
             torch.cuda.synchronize(d)
         launches = dict(kernels.launches)
+        memory["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         logs = _log_bytes(prefix)
     return logs, launches, frame_ref_s(
-        f"{label},{sec * 1e9}" for label, sec in timing.events)
+        f"{label},{sec * 1e9}" for label, sec in timing.events), memory
+
+
+def run_eager_path(csvs, plane_logs):
+    """Phase 6b(b): the 1080p -f 2 pipeline with every pair run eagerly, in
+    this process after phase 6: its 40 logs byte-identical to phase 6's
+    (produced by the graphs), 60 K1 and 66 K2 launches.  Returns its
+    seconds per frame-ref and memory."""
+    logs, launches, frame_s, memory = _pipeline_run(csvs, eager=True)
+    want = _path_launches({k: 3 * v for k, v in PAIR_LAUNCHES.items()})
+    _require(launches == want, f"eager pipeline: launches {launches}, "
+                               f"want {want}")
+    differ = [k for k in plane_logs if logs.get(k) != plane_logs[k]]
+    _require(logs == plane_logs, f"eager pipeline: logs differ from the "
+                                 f"graphs' (phase 6): {differ}")
+    print(f"[graph] the eager 1080p pipeline's 40 logs == phase 6's (graph "
+          f"replays), K1 {launches['warp']} and K2 "
+          f"{launches['blockreduce']} launches", flush=True)
+    return frame_s, memory
+
+
+def graph_summary(card, main_s, main_memory, eager_s, eager_memory,
+                  capture_s, launches, busy_share):
+    """Phase 6b(c): the ``graph`` JSON line."""
+    import torch
+
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
+    dev = torch.device("cuda:0")
+    pair_capture_s = {m: ap.build_pair_stage(
+        ap.PlaneSpec(m, 2, FW, FH), ap.PlaneSpec(m, 3, FW, FH),
+        dev).capture_s for m in ("full", "half")}
+    first, *later = main_s.values()
+    row = {"card": card, "frame": f"{FW}x{FH}",
+           "frame_ref_s": {"graphs_first_capturing": first,
+                           "graphs_replayed": later,
+                           "eager": list(eager_s.values())},
+           "main_path_capture_s": pair_capture_s,
+           "phase_6b_capture_s": capture_s,
+           "launches": launches,
+           "memory_graphs": main_memory, "memory_eager": eager_memory,
+           "busy_share_replayed_frame_ref": busy_share.get("replayed"),
+           "busy_share_eager_frame_ref": busy_share.get("eager")}
+    print(json.dumps({"graph": row}), flush=True)
 
 
 def _split_cli(n, csvs):
@@ -1408,7 +1609,7 @@ def check_split(csvs, plane_logs, main_s):
                                          for i in range(n)]
         for name, devices in layouts.items():
             logs, launches, frame_s = (
-                _split_in_process(devices, csvs) if name == "one card"
+                _pipeline_run(csvs, devices)[:3] if name == "one card"
                 else _split_cli(n, csvs))
             want = _path_launches({k: n * 3 * v
                                    for k, v in PAIR_LAUNCHES.items()})
@@ -1570,8 +1771,9 @@ def run_tools(csvs, plane_logs, card):
     (a) power_trace + energy_report; (b) profile_stage at 1080p, FULL and
     --half; (c) xprof_trace at 1080p, which must find K1 and K2 among the
     device ops of one frame-ref (at most the 20 and 22 launched); (d)
-    tpu_parity at 832x480, every stage bit-identical; (e) gop_golden at 3840x2160 -f 1, byte-identical logs,
-    K1/K2 20/22 launches in the plane child and none in the gather child;
+    tpu_parity at 832x480, every stage bit-identical; (e) gop_golden at
+    3840x2160 -f 2, byte-identical logs, K1/K2 60/66 launches in the plane
+    child and none in the gather child;
     (f) scaling_bench at 1080p over 1, 2 and 4 shards, equal results;
     (g) one pair per mode at 4K in this process under the profiler."""
     import shutil
@@ -1628,22 +1830,24 @@ def run_tools(csvs, plane_logs, card):
         summary["tpu_parity"] = {"stages": 8, "wall_s": wall_s}
 
         path = os.path.join(tmp, "gop.json")
-        out, wall_s = _tool("gop_golden", "3840x2160", "--frames", "1",
+        out, wall_s = _tool("gop_golden", "3840x2160", "--frames", "2",
                             "--out", path, timeout=600)
         res = _json_line(out, "gop_golden")
         _require(res["verdict"] == "byte-identical"
                  and res["n_log_files"] == 40,
                  f"gop_golden 4K: {res['verdict']}, {res['n_log_files']} "
                  f"logs")
-        want = {"plane": _path_launches(PAIR_LAUNCHES),
+        want = {"plane": _path_launches({k: 3 * v for k, v in
+                                         PAIR_LAUNCHES.items()}),
                 "gather": _path_launches({})}
         _require(res["launches"] == want,
                  f"gop_golden 4K launches {res['launches']}, want {want}")
-        print(f"[tools] gop_golden 3840x2160 -f 1: 40 logs byte-identical, "
-              f"K1/K2 20/22 (plane) and 0/0 (gather) ({wall_s:.1f} s)",
+        print(f"[tools] gop_golden 3840x2160 -f 2: 40 logs byte-identical, "
+              f"K1/K2 60/66 (plane) and 0/0 (gather) ({wall_s:.1f} s)",
               flush=True)
         summary["gop_golden"] = {k: res[k] for k in (
-            "wall_s", "frame_ref_s", "max_memory_allocated")}
+            "wall_s", "frame_ref_s", "first_frame_ref_s",
+            "later_frame_ref_s", "max_memory_allocated")}
 
         out, wall_s = _tool("scaling_bench", f"{FW}x{FH}", "--chips",
                             "1,2,4", timeout=300)
@@ -1709,17 +1913,22 @@ def main(argv=None) -> int:
     br_stats = check_blockreduce(tables, orig_pl, rng)
     check_card_vs_cpu()
     with tempfile.TemporaryDirectory() as work:
-        launches, csvs, plane_logs, main_s = run_main_path(
+        launches, csvs, plane_logs, main_s, main_memory = run_main_path(
             tables["full"].n_ctus, work)
+        capture_s = check_graphs()
+        eager_s, eager_memory = run_eager_path(csvs, plane_logs)
         path = capture_path_launches()
         rows, bound = time_kernels(tables, warp_stats, br_stats, launches,
                                    path)
         if args.ab:
             ab_compare(args.ab, path, tables, args.ab_k2_masks)
         del path
+        busy_share = {}
         if args.profile:
             profile_kernels(bound)
-            profile_pairs()
+            busy_share = profile_pairs()
+        graph_summary(card, main_s, main_memory, eager_s, eager_memory,
+                      capture_s, launches, busy_share)
         rows += check_probes()
         run_single_card_flags()
 

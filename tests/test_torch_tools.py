@@ -344,6 +344,9 @@ def test_gop_golden_on_the_cpu(tmp_path, monkeypatch, capsys):
         assert set(artifact["launches"][engine].values()) == {0}
         assert artifact["max_memory_allocated"][engine] is None
         assert list(artifact["frame_ref_s"][engine]) == ["POC 1 ref 0"]
+        assert artifact["first_frame_ref_s"][engine] == list(
+            artifact["frame_ref_s"][engine].values())
+        assert artifact["later_frame_ref_s"][engine] == []
 
 
 def test_gop_golden_diff_finds_a_differing_log(tmp_path):

@@ -1,7 +1,10 @@
 """vvc_affine_tpu_torch — the VVC Affine Motion Estimation engine in PyTorch.
 
 The same stage contract, frame loop, CLI flags and decision-log bytes as the
-JAX package ``vvc_affine_tpu``, run eagerly in PyTorch on an NVIDIA card.
+JAX package ``vvc_affine_tpu``, in PyTorch on an NVIDIA card, where each
+plane stage and each 2CP->3CP pair runs as one captured CUDA graph
+(``runtime/graphs.py``, the counterpart of the JAX package's ``jax.jit``);
+on the CPU everything runs eagerly.
 The two kernels of the dense plane engine — the warp (motion-compensated
 prediction of every 4x4 block of a CTU plane) and the block reduction (SATD,
 Sobel gradients and the five normal-equation moments) — are hand-written

@@ -14,7 +14,11 @@ kernel's registers, local and shared memory.
 Every C entry point launches one kernel on the stream it is given and
 returns ``cudaGetLastError()``; the launcher that ``bind`` returns raises
 when that is not 0 and counts the launch in ``launches``, the only place a
-kernel launch is counted.
+kernel launch is counted.  ``launches`` counts launches the device
+executes: a launch made while a CUDA graph is captured executes nothing, so
+inside ``recording()`` it goes to the capture's record instead, and every
+replay of the graph adds that record (``add_launches``, called by
+``runtime.graphs``).
 """
 
 from __future__ import annotations
@@ -57,9 +61,33 @@ build_log: Dict[str, str] = {}      # source path -> nvcc/ptxas output
 _src_dir = _CSRC                    # where sources are read (source_dir)
 
 
+# per thread: the launch record of the capture in progress, or None
+_capture = threading.local()
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the context, this thread's launches are not counted in
+    ``launches`` but recorded in the dict it yields (kernel name ->
+    launches): the launches that a CUDA graph's capture binds."""
+    record: Dict[str, int] = {}
+    outer = getattr(_capture, "record", None)
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = outer
+
+
+def add_launches(record: Dict[str, int]) -> None:
+    """Count the launches of ``record`` (one replay of a captured graph)."""
+    for name, n in record.items():
+        launches[name] += n
 
 
 def _nvcc() -> str:
@@ -215,6 +243,10 @@ def bind(name: str, device: torch.device, *args):
         if rc != 0:
             raise RuntimeError(
                 f"kernel {name} failed to launch: CUDA error {rc}")
-        launches[name] += 1
+        record = getattr(_capture, "record", None)
+        if record is None:
+            launches[name] += 1
+        else:
+            record[name] = record.get(name, 0) + 1
 
     return run

@@ -17,13 +17,16 @@ gives the same outputs, bit for bit.
 
 A ``Mesh`` lists this process's devices, one per shard; a list may name one
 card more than once, and then its shards run on that card one after
-another.  The shards are issued one after another from the calling thread
-(the glue around the kernels is host-bound, so one thread could not overlap
-them).  In one process a sharded stage returns the whole result on the
-mesh's first device.  In a run of several processes
-(``runtime.distributed``) each process runs its own shards, and a sharded
-stage returns this process's rows as a ``ProcessBlock``, which
-``distributed.gather_to_host`` gathers.
+another.  The shards are issued one after another from the calling thread.
+On a card, the plane engine's work of each distinct device (the prep and
+that device's shards) is one CUDA graph, captured at the first call and
+replayed after (``runtime.graphs``, as ``affine_plane.build_stage``); the
+padding of the CPMVs, the join and every collective stay outside the
+graphs.  The gather engine's shards run eagerly.  In one process a sharded
+stage returns the whole result on the mesh's first device.  In a run of
+several processes (``runtime.distributed``) each process runs its own
+shards, and a sharded stage returns this process's rows as a
+``ProcessBlock``, which ``distributed.gather_to_host`` gathers.
 
 Not ported, because they are TPU or XLA workarounds: the escape-counter
 telemetry and its psums, ahead-of-time compilation (``precompile``) and
@@ -40,6 +43,7 @@ import torch
 from vvc_affine_tpu_torch import geometry as G
 from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.models import affine_me, affine_plane
+from vvc_affine_tpu_torch.runtime import graphs
 
 
 @dataclass(frozen=True)
@@ -170,27 +174,40 @@ class _Split:
 def _plane_sharded(spec: affine_plane.PlaneSpec, mesh: Mesh, core):
     """A plane-engine runner over ``mesh``: prep once per distinct device
     on its padded tables, then ``core(tables, ref_flat, orig_pl, ref_pl,
-    lam, prev)`` per shard on the shard's rows."""
+    lam, prev)`` per shard on the shard's rows.  On a card, the prep and
+    the cores of that card's shards are one CUDA graph
+    (``runtime.graphs``); the padding of ``prev`` and the join stay
+    outside it."""
     split = _Split(spec, mesh)
     tables = {d: affine_plane.build_tables(spec, d, split.n_pad)
               for d in split.devices}
-    shards = [(d, affine_plane.ctu_rows(tables[d], lo, hi),
-               split.local(lo, hi)) for d, lo, hi in split.shards]
+
+    def on_device(d):
+        # the prep and the cores of d's shards, their outputs flat
+        mine = [(affine_plane.ctu_rows(tables[d], lo, hi),
+                 split.local(lo, hi)) for dd, lo, hi in split.shards
+                if dd == d]
+
+        def run(ref, orig, lam, prev):
+            pls = affine_plane.prep_inputs(spec, tables[d], ref, orig)
+            # this process's rows of the padded planes
+            orig_pl, ref_pl = (pl[split.lo:split.hi] for pl in pls)
+            return tuple(x for t, rows in mine for x in core(
+                t, ref, orig_pl[rows], ref_pl[rows], lam, prev[rows]))
+
+        return graphs.for_device(run, d), len(mine)
+
+    runners = {d: on_device(d) for d in split.devices}
 
     def run(ref_flat, orig_flat, lam, prev):
         inputs = split.inputs(ref_flat, orig_flat, lam, prev)
-        planes = {}
-        for d in split.devices:
-            pls = affine_plane.prep_inputs(spec, tables[d], *inputs[d][:2])
-            # this process's rows of the padded planes
-            planes[d] = [pl[split.lo:split.hi] for pl in pls]
-        outs = []
-        for d, t, rows in shards:
-            ref, _, lam_d, prev_d = inputs[d]
-            orig_pl, ref_pl = planes[d]
-            outs.append(core(t, ref, orig_pl[rows], ref_pl[rows], lam_d,
-                             prev_d[rows]))
-        return split.join(outs)
+        per_device = {}
+        for d, (fn, n_shards) in runners.items():
+            flat = fn(*inputs[d])
+            n = len(flat) // n_shards
+            per_device[d] = iter([flat[k:k + n]
+                                  for k in range(0, len(flat), n)])
+        return split.join([next(per_device[d]) for d, _, _ in split.shards])
 
     return run
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,24 +142,41 @@ def plane_layout(mode: str) -> Tuple[ClassPlane, ...]:
     return tuple(_class_plane(ci, c) for ci, c in enumerate(lay.classes))
 
 
-
-
 # ---------------------------------------------------------------------------
-# spread / reduce between per-CU tensors and slot planes (static slicing only)
+# spread / reduce between per-CU tensors and slot planes (static slices; the
+# CU ids of 16x16_U123's sub-grids come from device tables, subgrid_index)
 # ---------------------------------------------------------------------------
 
-def spread_cu_to_slots(vals: torch.Tensor, cp: ClassPlane) -> torch.Tensor:
+def subgrid_index(cp: ClassPlane,
+                  device) -> Tuple[Optional[torch.Tensor], ...]:
+    """Per sub-grid of ``cp``, its CU ids as an int64 tensor on ``device``,
+    or None where they are 0..n-1 in order (every class but 16x16_U123).
+
+    Built once with the tables: indexing with a Python list copies the
+    list to the device on every call, which a CUDA graph cannot capture.
+    """
+    return tuple(
+        None if g.cu_ids == tuple(range(len(g.cu_ids)))
+        else torch.tensor(g.cu_ids, dtype=torch.int64, device=device)
+        for g in cp.subgrids)
+
+
+def spread_cu_to_slots(vals: torch.Tensor, cp: ClassPlane,
+                       index: Tuple[Optional[torch.Tensor], ...]
+                       ) -> torch.Tensor:
     """Per-CU values -> [..., NB, NB] slot plane (invalid slots zero).
 
-    vals: [..., num_cus] (class-canonical raster order).  Each CU's value is
-    written into its sbh x sbw block of slots on a fresh zeros plane by
-    slice assignment: one slice per contiguous sub-grid, one per CU where
-    the CUs of a sub-grid leave gaps between them.
+    vals: [..., num_cus] (class-canonical raster order); ``index``:
+    ``subgrid_index(cp, vals.device)``.  Each CU's value is written into its
+    sbh x sbw block of slots on a fresh zeros plane by slice assignment: one
+    slice per contiguous sub-grid, one per CU where the CUs of a sub-grid
+    leave gaps between them.
     """
     batch = vals.shape[:-1]
     plane = vals.new_zeros(batch + (NB, NB))
-    for g in cp.subgrids:
-        v = vals[..., list(g.cu_ids)]                      # [..., ny*nx]
+    for g, idx in zip(cp.subgrids, index, strict=True):
+        # [..., ny*nx]
+        v = vals if idx is None else vals.index_select(-1, idx)
         v = v.reshape(batch + (g.ny, 1, g.nx, 1)).expand(
             batch + (g.ny, g.sbh, g.nx, g.sbw))
         if g.bystep == g.sbh and g.bxstep == g.sbw:

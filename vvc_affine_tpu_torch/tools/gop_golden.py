@@ -18,8 +18,12 @@ frame with noise in [-12, 12), written with
 ``runtime.frames.write_frames_csv``.  Each child prints its kernels' launch
 counts and ``torch.cuda.max_memory_allocated`` (null on the CPU); the
 artifact records them beside the wall seconds and the seconds per frame-ref
-of the CLI's timing report (CUDA events, FULL + HALF).  It goes to
-``--out``, else to a new temporary file.  Exit 0 when every log is
+of the CLI's timing report (CUDA events, FULL + HALF).  On a card a
+process's first frame-ref also warms up and captures the plane engine's
+CUDA graphs (``runtime.graphs``), and its later frame-refs replay them, so
+the artifact gives the first frame-ref and the later ones apart
+(``first_frame_ref_s``, ``later_frame_ref_s``; ``--frames 2`` or more has
+later ones).  It goes to ``--out``, else to a new temporary file.  Exit 0 when every log is
 byte-identical, 2 when one differs; a failed child raises.
 ``main(argv, device="cpu")`` runs both children on the CPU.
 """
@@ -191,6 +195,10 @@ def main(argv=None, device=None) -> int:
         "verdict": verdict,
         "wall_s": {e: r["wall_s"] for e, r in runs.items()},
         "frame_ref_s": {e: r["frame_ref_s"] for e, r in runs.items()},
+        "first_frame_ref_s": {e: list(r["frame_ref_s"].values())[:1]
+                              for e, r in runs.items()},
+        "later_frame_ref_s": {e: list(r["frame_ref_s"].values())[1:]
+                              for e, r in runs.items()},
         "launches": {e: r["launches"] for e, r in runs.items()},
         "max_memory_allocated": {e: r["max_memory_allocated"]
                                  for e, r in runs.items()},

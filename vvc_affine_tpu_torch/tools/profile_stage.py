@@ -10,7 +10,10 @@ Each piece of ``models/affine_plane.py`` — ``prep_inputs``, ``_mv_planes``,
 K1 (``ops.warp.warp``), K2 (``ops.blockreduce.reduce_blocks``) with and
 without ``refine``, ``_assemble_equations``, the solver
 (``ops.solver.solve_affine``), ``refine_cpmvs``, ``_evaluate`` and the whole
-stage — gets one line and one JSON row:
+stage — gets one line and one JSON row.  Every piece runs eagerly, the
+whole stage too (``affine_plane.eager_stage_fn``): on a card
+``build_stage`` replays the stage as one CUDA graph, which has no pieces
+to time; ``chip_smoke.py`` times the replay.
 
 * ``event_ms``: the median of 5 runs after a warm one, CUDA events around
   each run (the host clock on the CPU);
@@ -124,7 +127,7 @@ def pieces(spec: ap.PlaneSpec, device: torch.device):
     _, moms_b = reduce(True)
     moments = [moms_b[:, bi].to(torch.int64) for bi in range(t.n_bins)]
     M, rhs = ap._assemble_equations(spec, t, moments)
-    stage = ap.build_stage(spec, device)
+    stage = ap.eager_stage_fn(spec, device)
     return [
         ("prep_inputs", lambda: ap.prep_inputs(spec, t, ref, orig)),
         ("mv_planes", lambda: ap._mv_planes(spec, t, cp)),
@@ -136,7 +139,7 @@ def pieces(spec: ap.PlaneSpec, device: torch.device):
         ("solver", lambda: solver_ops.solve_affine(M, rhs, spec.n_cp)),
         ("refine_cpmvs", lambda: ap.refine_cpmvs(spec, t, cp, M, rhs)),
         ("evaluate", lambda: ap._evaluate(spec, t, ref, orig_pl, cp, True)),
-        ("full stage", lambda: stage(ref, orig, lam, zero)),
+        ("full stage", lambda: stage(ref, orig, lam, zero)),   # eager
     ]
 
 

@@ -5,7 +5,9 @@ reads per-kernel device times through clGetEventProfilingInfo,
 main.cpp:862-866): one frame-ref of the default path (the FULL and the HALF
 2CP->3CP pair on one reference) runs once to warm up, then once under
 ``torch.profiler`` with CPU and CUDA activities, inside a ``frame_ref``
-range.  The trace goes to DIR as a Chrome trace (a new temporary directory
+range.  On a card the warm-up also captures each pair as a CUDA graph
+(``runtime.graphs``), so the profiled frame-ref is two graph replays; the
+profiler still records every kernel inside them.  The trace goes to DIR as a Chrome trace (a new temporary directory
 without ``--out``), and the tool prints the device ops by self time:
 
     python -m vvc_affine_tpu_torch.tools.xprof_trace [WxH] [--out DIR]
