@@ -78,20 +78,30 @@ Phases, in order (any failure exits non-zero before the result line):
    must show a peak above the bytes the earlier phases left allocated.  Each
    run's K1/K2 launches are counted as in phase 6;
 11. the gather engine (``--Engine gather``, plain PyTorch ops, no kernel of
-   its own): (a) its ops on the card against the CPU, tolerance 0 —
-   ``predict_subblocks`` on windows at and past each frame edge with all
-   16x16 phase pairs, ``filter_windows(last=False)``, ``sobel_cu``,
-   ``gradient_moments`` on extreme gradients and ``assemble_system``;
-   (b) one 2CP->3CP chain per mode at 416x240: the gather engine on the
-   card (default device), on the CPU and the plane engine on the card,
-   bit-identical; (c) ``cli.main --Engine gather`` at 1920x1080, -f 2,
-   -q 32 on phase 6's CSVs, with every kernel's launch count 0, and every
-   decision log byte-identical to phase 6's plane-engine logs (a
+   its own; on the card each stage is one CUDA graph of them): (a) its
+   ops on the card against the CPU, tolerance 0 — ``predict_subblocks``
+   on windows at and past each frame edge with all 16x16 phase pairs,
+   ``filter_windows(last=False)``, ``sobel_cu``, ``gradient_moments`` on
+   extreme gradients and ``assemble_system``; (b) one 2CP->3CP chain per
+   mode at 416x240, called twice on the card (default device; the first
+   call captures the stage graphs, the second replays them on another
+   input set), each bit-identical to the gather chain on the CPU and the
+   plane pair on the card; (c) ``cli.main --Engine gather`` at 1920x1080,
+   -f 2, -q 32 on phase 6's CSVs, with every kernel's launch count 0, and
+   every decision log byte-identical to phase 6's plane-engine logs (a
    ``gather_path`` JSON line with the CUDA-event seconds of each of the 12
-   stages; with ``--profile``, ``[profile]`` lines with the device
-   launches and busy time of one FULL and one HALF 2CP stage); (d) phase
+   stages, per frame-ref the first, capturing one apart from the
+   replayed ones, and the run's peak memory; with ``--profile``,
+   ``[profile]`` lines with the device launches, busy time and idle share
+   of one FULL and one HALF 2CP stage, eager and then replayed); (d) phase
    6's two CSVs parsed by the native library and by the plain Python
-   parser, equal arrays, both times on ``[native]`` lines;
+   parser, equal arrays, both times on ``[native]`` lines; (e) per (mode,
+   n_cp) the 1080p stage graph that (c) captured, fed the four input sets
+   of phase 6b in turn (3CP on its 2CP output), each output bit-identical
+   to the eager loop's (``affine_me.eager_stage_fn``), also after the
+   later replays, no kernel launched (a ``gather_graph`` JSON line:
+   capture seconds per stage, replayed and eager seconds per set, kernel
+   launches per replay);
 12. the CTU-axis split (``parallel/mesh.py``, ``runtime/distributed.py``)
    held on the one card: (a) ``AffineMEPipeline`` with ``mesh=make_mesh(
    [cuda:0] * N)``, N = 2 and 4 (135 CTUs pad to 136, so a padding CTU
@@ -105,9 +115,14 @@ Phases, in order (any failure exits non-zero before the result line):
    killed and the phase fails), process 0's 40 logs byte-identical to
    phase 6's, process 1's none; (c) the same two processes at 416x240 with
    --CheckpointDir, -f 1 and then -f 2 resumed: process 0's logs equal an
-   uninterrupted one-process run's, process 1's none.  A ``split`` JSON
-   line gives the seconds per frame-ref (the CUDA-event pair times of the
-   CLI's timing report, FULL + HALF) of phase 6, (a) and (b).  On the CPU
+   uninterrupted one-process run's, process 1's none; (d) the gather
+   engine's 1080p -f 2 pipeline split over 2 shards on card 0 (one graph
+   per stage holding both shards, captured and replayed twice): logs ==
+   phase 6's, no kernel launch; (e) two processes with ``--Engine
+   gather`` at 416x240: process 0's logs equal the one-process run's,
+   process 1's none.  A ``split`` JSON line gives the seconds per
+   frame-ref (the CUDA-event pair or stage times of the CLI's timing
+   report, FULL + HALF) of phase 6, (a), (b), (d) and (e).  On the CPU
    the same split is held against the JAX package by
    ``tests/test_torch_{stage,cli,distributed}.py`` (CPU shards, two and
    four CPU processes over gloo);
@@ -129,14 +144,14 @@ Phases, in order (any failure exits non-zero before the result line):
    ``gop_golden`` at 3840x2160 -f 2 (510 CTUs, 3 frame-refs: the first
    captures the graphs, two replay): the plane and the gather CLI's 40
    logs byte-identical, K1/K2 launched 60/66 times in the plane child and
-   0/0 in the gather child; (f) ``scaling_bench`` at 1080p over
-   1, 2 and 4 shards (card 0 repeated where there are fewer cards): the
-   same result digest for every count (``[scaling]`` lines); (g) in this
-   process, one pair per mode at 3840x2160 on gop_golden's first frame
-   pair under the profiler, 10 K1 and 11 K2 launches each by the
-   wrappers' counts (``[profile]`` lines: K1/K2 device time per launch at
-   4K, the pair's idle share).  A
-   ``tools`` JSON line sums them up.
+   0/0 in the gather child, each child's first frame-ref, replayed
+   frame-refs and peak memory on ``[tools]`` lines; (f) ``scaling_bench``
+   at 1080p over 1, 2 and 4 shards (card 0 repeated where there are fewer
+   cards): the same result digest for every count (``[scaling]`` lines);
+   (g) in this process, one pair per mode at 3840x2160 on gop_golden's
+   first frame pair under the profiler, 10 K1 and 11 K2 launches each by
+   the wrappers' counts (``[profile]`` lines: K1/K2 device time per launch
+   at 4K, the pair's idle share).  A ``tools`` JSON line sums them up.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1287,63 +1302,87 @@ def check_gather_ops():
 
 
 def check_gather_pair():
-    """Phase 11b: one 2CP->3CP chain per mode at 416x240 — the gather
-    engine on the card (default device) and on the CPU, and the plane
-    engine on the card, all bit-identical; the card's gather chain
-    launches no kernel."""
+    """Phase 11b: one 2CP->3CP chain per mode at 416x240, called twice on
+    the card (default device): the first call captures each stage's CUDA
+    graph, the second replays on another input set (``affine_gop`` seeds 5
+    and 6).  Each is bit-identical to the gather chain on the CPU (eager)
+    and to the plane pair on the card on the same set; the card's gather
+    chain launches no kernel."""
     import torch
 
     from vvc_affine_tpu_torch import kernels, testing
     from vvc_affine_tpu_torch.models import affine_me as me
     from vvc_affine_tpu_torch.models import affine_plane as ap
+    from vvc_affine_tpu_torch.runtime import graphs
 
-    o_np, r_np = testing.affine_gop(SMALL_W, SMALL_H, 1, seed=5)
+    sets = [testing.affine_gop(SMALL_W, SMALL_H, 1, seed=k) for k in (5, 6)]
     for mode in ("full", "half"):
-        outs = {}
-        for name, d in (("gather card", None),
-                        ("gather CPU", torch.device("cpu")),
-                        ("plane card", None)):
-            z = ap.zero_cpmvs(ap.PlaneSpec(mode, 2, SMALL_W, SMALL_H), "cpu")
-            args = ap.stage_inputs_from_numpy(r_np[0], o_np[0], 57.54, z, d)
-            kernels.reset_launches()
-            if name.startswith("gather"):
-                s2, s3 = (me.build_stage(me.StageSpec(mode, n, SMALL_W,
-                                                      SMALL_H), d)
-                          for n in (2, 3))
-                c2, p2 = s2(*args)
-                out = (c2, p2, *s3(*args[:3], p2))
-                _require(not any(kernels.launches.values()),
-                         f"{name}: kernel launches {kernels.launches}")
-            else:
-                out = ap.build_pair_stage(
-                    ap.PlaneSpec(mode, 2, SMALL_W, SMALL_H),
-                    ap.PlaneSpec(mode, 3, SMALL_W, SMALL_H), device=d)(*args)
-            _require(out[0].device.type == ("cpu" if d else "cuda"),
-                     f"{name}: outputs on {out[0].device}")
-            _require([o.dtype for o in out] == [torch.int64, torch.int32] * 2,
-                     f"{name}: dtypes {[o.dtype for o in out]}")
-            outs[name] = [o.cpu() for o in out]
-        for name in ("gather CPU", "plane card"):
-            _require(all(torch.equal(a, b) for a, b in
-                         zip(outs["gather card"], outs[name])),
-                     f"{mode} pair: gather card differs from {name}")
-        print(f"[gather] {mode} pair at {SMALL_W}x{SMALL_H}: gather card == "
-              f"gather CPU == plane card (costs int64, CPMVs int32)",
+        z = ap.zero_cpmvs(ap.PlaneSpec(mode, 2, SMALL_W, SMALL_H), "cpu")
+        gather = {d: [me.build_stage(me.StageSpec(mode, n, SMALL_W,
+                                                  SMALL_H), d)
+                      for n in (2, 3)]
+                  for d in (None, torch.device("cpu"))}
+        card_stages = gather[None]
+        _require(all(isinstance(g, graphs.Graphed) and g.graph is None
+                     for g in card_stages),
+                 f"{mode}: the card's gather stages are not new graphs")
+        for k, (o_np, r_np) in enumerate(sets):
+            outs = {}
+            for name, d in (("gather card", None),
+                            ("gather CPU", torch.device("cpu")),
+                            ("plane card", None)):
+                args = ap.stage_inputs_from_numpy(r_np[0], o_np[0], 57.54, z,
+                                                  d)
+                kernels.reset_launches()
+                if name.startswith("gather"):
+                    s2, s3 = gather[d]
+                    c2, p2 = s2(*args)
+                    out = (c2, p2, *s3(*args[:3], p2))
+                    _require(not any(kernels.launches.values()),
+                             f"{name}: kernel launches {kernels.launches}")
+                else:
+                    out = ap.build_pair_stage(
+                        ap.PlaneSpec(mode, 2, SMALL_W, SMALL_H),
+                        ap.PlaneSpec(mode, 3, SMALL_W, SMALL_H),
+                        device=d)(*args)
+                _require(out[0].device.type == ("cpu" if d else "cuda"),
+                         f"{name}: outputs on {out[0].device}")
+                _require([o.dtype for o in out]
+                         == [torch.int64, torch.int32] * 2,
+                         f"{name}: dtypes {[o.dtype for o in out]}")
+                outs[name] = [o.cpu() for o in out]
+            _require([g.replays for g in card_stages] == [k, k],
+                     f"{mode} set {k}: gather graph replays "
+                     f"{[g.replays for g in card_stages]}, want {k}")
+            for name in ("gather CPU", "plane card"):
+                _require(all(torch.equal(a, b) for a, b in
+                             zip(outs["gather card"], outs[name])),
+                         f"{mode} chain, set {k}: gather card differs from "
+                         f"{name}")
+        print(f"[gather] {mode} chain at {SMALL_W}x{SMALL_H}: gather card "
+              f"(captured, then replayed on another set) == gather CPU == "
+              f"plane card on both sets (costs int64, CPMVs int32)",
               flush=True)
 
 
 def run_gather_path(csvs, plane_logs, profile):
     """Phase 11c: ``cli.main --Engine gather`` at 1080p -f 2 on phase 6's
     CSVs: no kernel launch, phase 6's decision logs byte for byte, the
-    CUDA-event seconds of each stage (the CLI's timing report)."""
+    CUDA-event seconds of each stage (the CLI's timing report) and per
+    frame-ref, the first (which warms up and captures the four stage
+    graphs) apart from the replayed ones, and the run's peak device
+    memory."""
     import torch
 
     from vvc_affine_tpu_torch import cli, kernels
+    from vvc_affine_tpu_torch.tools.gop_golden import frame_ref_s
 
     opath, rpath = csvs
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "gather")
         torch.cuda.synchronize()
+        memory = {"start_bytes": torch.cuda.memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         buf = io.StringIO()
         t0 = time.time()
@@ -1353,6 +1392,7 @@ def run_gather_path(csvs, plane_logs, profile):
                            "--Engine", "gather"])
         torch.cuda.synchronize()
         cli_s = time.time() - t0
+        memory["peak_bytes"] = torch.cuda.max_memory_allocated()
         launches = dict(kernels.launches)
         _require(rc == 0, f"cli.main --Engine gather returned {rc}")
         _require(not any(launches.values()),
@@ -1364,13 +1404,15 @@ def run_gather_path(csvs, plane_logs, profile):
     _require(not differ, f"gather path: logs differ from the plane path's: "
                          f"{differ}")
     # the timing report's per-dispatch lines: "EXEC <pred> POC p ref r,<ns>"
+    lines = buf.getvalue().splitlines()
     stage_s = {ln.rsplit(",", 1)[0]: float(ln.rsplit(",", 1)[1]) / 1e9
-               for ln in buf.getvalue().splitlines()
-               if ln.startswith("EXEC ")}
+               for ln in lines if ln.startswith("EXEC ")}
     _require(len(stage_s) == 12, f"{len(stage_s)} timed stages, want 12")
+    first, *later = frame_ref_s(lines).values()
     print(json.dumps({"gather_path": {
         "cli_s": cli_s, "launches": launches, "logs_identical": len(logs),
-        "stage_s": stage_s}}), flush=True)
+        "frame_ref_s": {"first_capturing": first, "replayed": later},
+        "memory": memory, "stage_s": stage_s}}), flush=True)
     if profile:
         profile_gather_stages()
 
@@ -1378,32 +1420,106 @@ def run_gather_path(csvs, plane_logs, profile):
 def profile_gather_stages():
     """Phase 11c with ``--profile``: the device launches and device-busy
     time of one FULL and one HALF 2CP gather stage on the main path's
-    first inputs."""
+    first inputs, run eagerly (``affine_me.eager_stage_fn``, first) and as
+    the main path's replayed graph (``affine_me.build_stage``)."""
     import torch
 
     from vvc_affine_tpu_torch.models import affine_me as me
 
-    for mode in ("full", "half"):
-        fn = me.build_stage(me.StageSpec(mode, 2, FW, FH))
-        args = _path_inputs(mode)
-        fn(*args)
-        torch.cuda.synchronize()
+    dev = torch.device("cuda:0")
+    for run in ("eager", "replayed"):
+        for mode in ("full", "half"):
+            spec = me.StageSpec(mode, 2, FW, FH)
+            fn = (me.eager_stage_fn(spec, dev) if run == "eager"
+                  else me.build_stage(spec))
+            args = _path_inputs(mode)
+            fn(*args)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+
+            def stage():
+                start.record()
+                fn(*args)
+                end.record()
+
+            events = _device_events(stage)
+            stage_ms = start.elapsed_time(end)
+            busy_ms = sum(ev.device_time_total for ev in events) / 1e3
+            print("[profile] " + json.dumps({
+                "gather_stage": f"{mode} 2CP", "run": run,
+                "frame": f"{FW}x{FH}", "stage_ms": stage_ms,
+                "device_busy_ms": busy_ms,
+                "idle_share": 1 - busy_ms / stage_ms,
+                "device_launches": len(events)}), flush=True)
+
+
+def check_gather_graphs():
+    """Phase 11e: per (mode, n_cp) the main path's captured 1080p gather
+    stage (``affine_me.build_stage``, captured by phase 11c's first
+    frame-ref) fed the four input sets of ``_graph_inputs`` in turn, the
+    3CP stage on its 2CP output, each output bit-identical to the eager
+    loop's (``affine_me.eager_stage_fn``) on the same set, also after the
+    later replays; no kernel launched.  A ``gather_graph`` JSON line:
+    capture seconds per stage, the replayed and the eager stage's seconds
+    per set (CUDA events) and the kernel launches per replay."""
+    import torch
+
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.models import affine_me as me
+    from vvc_affine_tpu_torch.runtime import graphs
+
+    dev = torch.device("cuda:0")
+    sets = _graph_inputs()
+
+    def timed(fn, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
 
-        def stage():
-            start.record()
-            fn(*args)
-            end.record()
-
-        events = _device_events(stage)
-        stage_ms = start.elapsed_time(end)
-        busy_ms = sum(ev.device_time_total for ev in events) / 1e3
-        print("[profile] " + json.dumps({
-            "gather_stage": f"{mode} 2CP", "frame": f"{FW}x{FH}",
-            "stage_ms": stage_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / stage_ms,
-            "device_launches": len(events)}), flush=True)
+    rows = {}
+    for mode in ("full", "half"):
+        stages = {}
+        for n in (2, 3):
+            spec = me.StageSpec(mode, n, FW, FH)
+            g = me.build_stage(spec)
+            _require(isinstance(g, graphs.Graphed) and g.graph is not None,
+                     f"{mode} {n}CP: build_stage is not a captured graph")
+            stages[n] = (g, me.eager_stage_fn(spec, dev), g.replays)
+        kept = []
+        secs = {n: {"replayed": [], "eager": []} for n in (2, 3)}
+        kernels.reset_launches()
+        for i, inputs in enumerate(sets):
+            args = inputs[mode]
+            prev = args[3]
+            for n in (2, 3):
+                g, eager, _ = stages[n]
+                got, g_s = timed(g, *args[:3], prev)
+                want, e_s = timed(eager, *args[:3], prev)
+                _same_outputs(f"gather {mode} {n}CP, set {i}", got, want)
+                kept.append((got, want))
+                secs[n]["replayed"].append(g_s)
+                secs[n]["eager"].append(e_s)
+                prev = want[1]
+        for i, (got, want) in enumerate(kept):
+            _same_outputs(f"gather {mode} stage {i}, kept", got, want)
+        _require(not any(kernels.launches.values()),
+                 f"gather {mode}: kernel launches {kernels.launches}")
+        for n, (g, _, before) in stages.items():
+            _require(g.replays == before + len(sets),
+                     f"gather {mode} {n}CP: {g.replays - before} replays, "
+                     f"want {len(sets)}")
+            rows[f"{mode} {n}CP"] = {"capture_s": g.capture_s,
+                                     "launches_per_replay": g.launches,
+                                     "stage_s": secs[n]}
+        print(f"[gather] {mode} 1920x1080: 4 input sets, 2CP and 3CP "
+              f"replays bit-identical to the eager loop, no kernel launch",
+              flush=True)
+    print(json.dumps({"gather_graph": rows}), flush=True)
 
 
 def check_native_ingest(csvs):
@@ -1427,13 +1543,15 @@ def check_native_ingest(csvs):
             "plain_s": t2 - t1}), flush=True)
 
 
-def _pipeline_run(csvs, devices=None, eager=False):
-    """The 1080p -f 2 pipeline on phase 6's CSVs, logs through
-    ``reporting``: on card 0, or split over ``devices`` (phase 12a); with
-    ``eager``, each pair run by its eager loop (``eager_pair_fn``) in place
-    of its graph (phase 6b).  Returns the logs, the launch counts, the
-    seconds per frame-ref and the device memory of the run (bytes at its
-    start, its peak)."""
+def _pipeline_run(csvs, devices=None, eager=False, engine="plane",
+                  check=None):
+    """The 1080p -f 2 pipeline of ``engine`` on phase 6's CSVs, logs
+    through ``reporting``: on card 0, or split over ``devices`` (phase
+    12a); with ``eager``, each pair run by its eager loop
+    (``eager_pair_fn``) in place of its graph (phase 6b).  ``check(pipe)``,
+    when given, runs on the pipeline after the run.  Returns the logs, the
+    launch counts, the seconds per frame-ref and the device memory of the
+    run (bytes at its start, its peak)."""
     import torch
 
     from vvc_affine_tpu_torch import kernels
@@ -1448,7 +1566,7 @@ def _pipeline_run(csvs, devices=None, eager=False):
     orig, ref = (frames_io.read_frames_csv(p, FW, FH, 2) for p in csvs)
     dev = torch.device("cuda:0")
     pipe = AffineMEPipeline(PipelineConfig(
-        FW, FH, 32, device=dev,
+        FW, FH, 32, device=dev, engine=engine,
         mesh=pmesh.make_mesh(devices) if devices else None))
     if eager:
         pipe.pairs = {m: ap.eager_pair_fn(ap.PlaneSpec(m, 2, FW, FH),
@@ -1475,6 +1593,8 @@ def _pipeline_run(csvs, devices=None, eager=False):
         launches = dict(kernels.launches)
         memory["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         logs = _log_bytes(prefix)
+    if check is not None:
+        check(pipe)
     return logs, launches, frame_ref_s(
         f"{label},{sec * 1e9}" for label, sec in timing.events), memory
 
@@ -1625,6 +1745,30 @@ def check_split(csvs, plane_logs, main_s):
                   f"{launches['warp']} and K2 {launches['blockreduce']} "
                   f"launches", flush=True)
 
+    from vvc_affine_tpu_torch.runtime import graphs
+
+    def one_graph_per_card(pipe):
+        for key, fn in pipe.stages.items():
+            _require(list(fn.per_device) == [torch.device("cuda:0")]
+                     and all(isinstance(g, graphs.Graphed) and g.replays == 2
+                             for g in fn.per_device.values()),
+                     f"gather split {key}: not one graph on card 0, "
+                     f"captured and replayed twice")
+
+    logs, launches, frame_s, _ = _pipeline_run(
+        csvs, [torch.device("cuda:0")] * 2, engine="gather",
+        check=one_graph_per_card)
+    _require(launches == _path_launches({}),
+             f"gather split 2 on one card: launches {launches}")
+    differ = [k for k in plane_logs if logs.get(k) != plane_logs[k]]
+    _require(logs == plane_logs, f"gather split 2 on one card: logs differ "
+                                 f"from phase 6's: {differ}")
+    summary["gather, 2 shards, one card"] = {
+        "frame_ref_s": frame_s, "launches": launches,
+        "logs_identical": len(logs)}
+    print("[split] gather engine, 2 shards on one card (one graph per "
+          "stage): 40 logs == phase 6's, no kernel launch", flush=True)
+
     opath, rpath = csvs
     with tempfile.TemporaryDirectory() as tmp:
         for name, stem, distinct in (("one card", "a", False),
@@ -1668,6 +1812,18 @@ def check_split(csvs, plane_logs, main_s):
             "logs_identical": len(got)}
         print("[split] two processes at 416x240, -f 1 then -f 2 resumed: "
               "logs == the uninterrupted run's", flush=True)
+        outs, wall_s = _two_processes(["-f", "2", "--Engine", "gather"]
+                                      + base, tmp, "g")
+        got = _log_bytes(os.path.join(tmp, "g0"))
+        _require(got == want, "two gather processes at 416x240: process "
+                              "0's logs differ from the one-process run's")
+        _require(not [f for f in os.listdir(tmp) if f.startswith("g1")],
+                 "two gather processes: process 1 wrote logs")
+        summary["two gather processes, 416x240"] = {
+            "frame_ref_s": [frame_ref_s(o.splitlines()) for o in outs],
+            "wall_s": wall_s, "logs_identical": len(got)}
+        print("[split] two gather processes at 416x240: process 0's logs "
+              "== the one-process run's, process 1 wrote none", flush=True)
     print(json.dumps({"split": summary}), flush=True)
 
 
@@ -1845,6 +2001,11 @@ def run_tools(csvs, plane_logs, card):
         print(f"[tools] gop_golden 3840x2160 -f 2: 40 logs byte-identical, "
               f"K1/K2 60/66 (plane) and 0/0 (gather) ({wall_s:.1f} s)",
               flush=True)
+        for e in ("plane", "gather"):
+            print(f"[tools] gop_golden {e}: first (capturing) frame-ref "
+                  f"{res['first_frame_ref_s'][e]} s, replayed "
+                  f"{res['later_frame_ref_s'][e]} s, peak "
+                  f"{res['max_memory_allocated'][e]} B", flush=True)
         summary["gop_golden"] = {k: res[k] for k in (
             "wall_s", "frame_ref_s", "first_frame_ref_s",
             "later_frame_ref_s", "max_memory_allocated")}
@@ -1936,6 +2097,7 @@ def main(argv=None) -> int:
         check_gather_pair()
         run_gather_path(csvs, plane_logs, args.profile)
         check_native_ingest(csvs)
+        check_gather_graphs()
         check_split(csvs, plane_logs, main_s)
         run_tools(csvs, plane_logs, card)
 

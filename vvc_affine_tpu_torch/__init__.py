@@ -2,9 +2,9 @@
 
 The same stage contract, frame loop, CLI flags and decision-log bytes as the
 JAX package ``vvc_affine_tpu``, in PyTorch on an NVIDIA card, where each
-plane stage and each 2CP->3CP pair runs as one captured CUDA graph
-(``runtime/graphs.py``, the counterpart of the JAX package's ``jax.jit``);
-on the CPU everything runs eagerly.
+stage of either engine and each plane 2CP->3CP pair runs as one captured
+CUDA graph (``runtime/graphs.py``, the counterpart of the JAX package's
+``jax.jit``); on the CPU everything runs eagerly.
 The two kernels of the dense plane engine — the warp (motion-compensated
 prediction of every 4x4 block of a CTU plane) and the block reduction (SATD,
 Sobel gradients and the five normal-equation moments) — are hand-written
@@ -14,8 +14,9 @@ keeps a plain PyTorch version of the same function, which it runs only for
 tensors on the CPU; the tests hold the port against the JAX package on the
 CPU through those plain versions.  The gather engine (``models/affine_me``,
 ``--Engine gather``) has no kernel of its own: plain PyTorch ops on any
-device.  The CSV ingest and the decision-log writer are native C++
-(``native/``), built with ``g++`` at first use.
+device, captured as one CUDA graph per stage on a card.  The CSV ingest
+and the decision-log writer are native C++ (``native/``), built with
+``g++`` at first use.
 
 Entry points (``models.affine_plane.build_stage``/``build_pair_stage``,
 ``models.affine_me.build_stage``, ``models.pipeline.AffineMEPipeline``,

@@ -21,9 +21,12 @@ Structure:
   * Out-of-frame CUs (partial bottom/right CTUs) contribute zero SATD and a
     zeroed equation system (affine.cl:192-208).
 
-The engine runs plain PyTorch ops on any device: it shares no kernel with
+The engine is plain PyTorch ops on any device: it shares no kernel with
 the plane engine (``affine_plane``), so on the card its decisions are an
-independent check of K1 and K2.  PROF is computed-but-disabled in the
+independent check of K1 and K2.  On a card each stage is one CUDA graph of
+those ops, captured at its first call and replayed after
+(``runtime.graphs``, the counterpart of the JAX engine's jitted stage); on
+the CPU the ops run eagerly.  PROF is computed-but-disabled in the
 reference (enablePROF=0, affine.cl:168), so it is not on the prediction
 path; ``ops/prof.py`` holds it.
 """
@@ -47,6 +50,7 @@ from vvc_affine_tpu_torch.ops import gradient as grad_ops
 from vvc_affine_tpu_torch.ops import interp as interp_ops
 from vvc_affine_tpu_torch.ops import mv as mv_ops
 from vvc_affine_tpu_torch.ops import satd as satd_ops
+from vvc_affine_tpu_torch.runtime import graphs
 
 
 @dataclass(frozen=True)
@@ -277,15 +281,27 @@ def _stage_run(spec: StageSpec, t: StageTables, ref_flat, orig_flat, lam,
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_fn(spec: StageSpec, device: torch.device):
+def eager_stage_fn(spec: StageSpec, device: torch.device):
+    """``build_stage``'s stage as the eager loop of ops it is built from,
+    on ``device``.  On the card it is the oracle that the captured stage is
+    held against (``chip_smoke.py``); it is never a fallback for a failed
+    capture.  ``run.check`` is its input check
+    (``affine_plane.check_inputs``)."""
     tables = build_tables(spec, device=device)
+    check = functools.partial(affine_plane.check_inputs, tables, spec, device)
 
     def run(ref_flat, orig_flat, lam, prev_cpmvs):
-        affine_plane.check_inputs(tables, spec, device, ref_flat, orig_flat,
-                                  lam, prev_cpmvs)
+        check(ref_flat, orig_flat, lam, prev_cpmvs)
         return _stage_run(spec, tables, ref_flat, orig_flat, lam, prev_cpmvs)
 
+    run.check = check
     return run
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_fn(spec: StageSpec, device: torch.device):
+    eager = eager_stage_fn(spec, device)
+    return graphs.for_device(eager, device, eager.check)
 
 
 def build_stage(spec: StageSpec, device=None):
@@ -294,7 +310,10 @@ def build_stage(spec: StageSpec, device=None):
     prev_cpmvs int32 [nCtu, nCU, 3, 2]) ->
     (best_cost int64 [nCtu, nCU], best_cpmvs int32 [nCtu, nCU, 3, 2]), both
     in canonical class order: the plane engine's contract and outputs.  For
-    2CP stages ``prev_cpmvs`` is ignored (pass ``zero_cpmvs``)."""
+    2CP stages ``prev_cpmvs`` is ignored (pass ``zero_cpmvs``).  On a card
+    the stage is one CUDA graph, captured at the first call and replayed
+    from the second (``runtime.graphs.Graphed``); on the CPU it runs
+    eagerly."""
     return _stage_fn(spec, resolve_device(device))
 
 

@@ -18,11 +18,13 @@ gives the same outputs, bit for bit.
 A ``Mesh`` lists this process's devices, one per shard; a list may name one
 card more than once, and then its shards run on that card one after
 another.  The shards are issued one after another from the calling thread.
-On a card, the plane engine's work of each distinct device (the prep and
-that device's shards) is one CUDA graph, captured at the first call and
-replayed after (``runtime.graphs``, as ``affine_plane.build_stage``); the
-padding of the CPMVs, the join and every collective stay outside the
-graphs.  The gather engine's shards run eagerly.  In one process a sharded
+On a card, the work of each distinct device (for the plane engine its
+prep, then that device's shards; for the gather engine its shards) is one
+CUDA graph, captured at the first call and replayed after
+(``runtime.graphs``, as ``affine_plane.build_stage`` and
+``affine_me.build_stage``); one runner (``_sharded``) serves both engines.
+The input checks, the padding of the CPMVs, the join and every collective
+stay outside the graphs.  In one process a sharded
 stage returns the whole result on the mesh's first device.  In a run of
 several processes (``runtime.distributed``) each process runs its own
 shards, and a sharded stage returns this process's rows as a
@@ -35,6 +37,7 @@ telemetry and its psums, ahead-of-time compilation (``precompile``) and
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -171,44 +174,53 @@ class _Split:
         return tuple(x[:self.n_ctus] for x in joined)
 
 
-def _plane_sharded(spec: affine_plane.PlaneSpec, mesh: Mesh, core):
-    """A plane-engine runner over ``mesh``: prep once per distinct device
-    on its padded tables, then ``core(tables, ref_flat, orig_pl, ref_pl,
-    lam, prev)`` per shard on the shard's rows.  On a card, the prep and
-    the cores of that card's shards are one CUDA graph
-    (``runtime.graphs``); the padding of ``prev`` and the join stay
-    outside it."""
+def _sharded(spec, mesh: Mesh, engine, core, prep=None):
+    """A stage runner over ``mesh`` for either engine (``engine``: the
+    ``affine_plane`` or ``affine_me`` module, whose ``build_tables`` and
+    ``ctu_rows`` it uses).  Per distinct device: ``prep(spec, tables,
+    ref_flat, orig_flat)`` once on that device's padded tables, when given
+    (the plane engine's CTU planes), then per shard ``core(t, ref_flat,
+    orig_flat, lam, prev, *planes)`` on the shard's rows ``t`` of the
+    tables and its rows of ``prev`` and of each prepped plane.  On a card
+    the work of each distinct device is one CUDA graph
+    (``runtime.graphs``); the input checks, the padding of ``prev``
+    (``_Split.inputs``) and the join stay outside it.  ``run.per_device``
+    maps each distinct device to its runner (a ``graphs.Graphed`` on a
+    card, the eager function on the CPU)."""
     split = _Split(spec, mesh)
-    tables = {d: affine_plane.build_tables(spec, d, split.n_pad)
+    tables = {d: engine.build_tables(spec, device=d, n_ctu_pad=split.n_pad)
+              for d in split.devices}
+
+    # per distinct device: its shards' rows of the tables and of the
+    # process's padded axis
+    shards = {d: [(engine.ctu_rows(tables[d], lo, hi), split.local(lo, hi))
+                  for dd, lo, hi in split.shards if dd == d]
               for d in split.devices}
 
     def on_device(d):
-        # the prep and the cores of d's shards, their outputs flat
-        mine = [(affine_plane.ctu_rows(tables[d], lo, hi),
-                 split.local(lo, hi)) for dd, lo, hi in split.shards
-                if dd == d]
-
         def run(ref, orig, lam, prev):
-            pls = affine_plane.prep_inputs(spec, tables[d], ref, orig)
             # this process's rows of the padded planes
-            orig_pl, ref_pl = (pl[split.lo:split.hi] for pl in pls)
-            return tuple(x for t, rows in mine for x in core(
-                t, ref, orig_pl[rows], ref_pl[rows], lam, prev[rows]))
+            pls = () if prep is None else tuple(
+                pl[split.lo:split.hi] for pl in prep(spec, tables[d], ref,
+                                                     orig))
+            # d's shards' outputs, flat
+            return tuple(x for t, rows in shards[d] for x in core(
+                t, ref, orig, lam, prev[rows], *(pl[rows] for pl in pls)))
 
-        return graphs.for_device(run, d), len(mine)
+        return graphs.for_device(run, d)
 
-    runners = {d: on_device(d) for d in split.devices}
+    per_device = {d: on_device(d) for d in split.devices}
 
     def run(ref_flat, orig_flat, lam, prev):
         inputs = split.inputs(ref_flat, orig_flat, lam, prev)
-        per_device = {}
-        for d, (fn, n_shards) in runners.items():
+        outs = {}
+        for d, fn in per_device.items():
             flat = fn(*inputs[d])
-            n = len(flat) // n_shards
-            per_device[d] = iter([flat[k:k + n]
-                                  for k in range(0, len(flat), n)])
-        return split.join([next(per_device[d]) for d, _, _ in split.shards])
+            n = len(flat) // len(shards[d])
+            outs[d] = iter([flat[k:k + n] for k in range(0, len(flat), n)])
+        return split.join([next(outs[d]) for d, _, _ in split.shards])
 
+    run.per_device = per_device
     return run
 
 
@@ -222,42 +234,28 @@ def build_plane_pair_sharded(spec2: affine_plane.PlaneSpec,
         raise ValueError("build_plane_pair_sharded takes a mode's 2CP and "
                          "3CP specs")
 
-    def core(t, ref, orig_pl, ref_pl, lam, prev2):
+    def core(t, ref, orig, lam, prev2, orig_pl, ref_pl):
         c2, p2 = affine_plane._stage_core(spec2, t, ref, orig_pl, ref_pl,
                                           lam, prev2)
         c3, p3 = affine_plane._stage_core(spec3, t, ref, orig_pl, ref_pl,
                                           lam, p2)
         return c2, p2, c3, p3
 
-    return _plane_sharded(spec2, mesh, core)
+    return _sharded(spec2, mesh, affine_plane, core, affine_plane.prep_inputs)
 
 
 def build_plane_stage_sharded(spec: affine_plane.PlaneSpec, mesh: Mesh):
     """``affine_plane.build_stage`` split over ``mesh``: fn(ref_flat,
     orig_flat, lam, prev_cpmvs) -> (cost, cpmvs)."""
-    def core(t, ref, orig_pl, ref_pl, lam, prev):
+    def core(t, ref, orig, lam, prev, orig_pl, ref_pl):
         return affine_plane._stage_core(spec, t, ref, orig_pl, ref_pl, lam,
                                         prev)
 
-    return _plane_sharded(spec, mesh, core)
+    return _sharded(spec, mesh, affine_plane, core, affine_plane.prep_inputs)
 
 
 def build_stage_sharded(spec: affine_me.StageSpec, mesh: Mesh):
     """``affine_me.build_stage`` (the gather engine) split over ``mesh``:
     fn(ref_flat, orig_flat, lam, prev_cpmvs) -> (cost, cpmvs)."""
-    split = _Split(spec, mesh)
-    tables = {d: affine_me.build_tables(spec, split.n_pad, d)
-              for d in split.devices}
-    shards = [(d, affine_me.ctu_rows(tables[d], lo, hi), split.local(lo, hi))
-              for d, lo, hi in split.shards]
-
-    def run(ref_flat, orig_flat, lam, prev):
-        inputs = split.inputs(ref_flat, orig_flat, lam, prev)
-        outs = []
-        for d, t, rows in shards:
-            ref, orig, lam_d, prev_d = inputs[d]
-            outs.append(affine_me._stage_run(spec, t, ref, orig, lam_d,
-                                             prev_d[rows]))
-        return split.join(outs)
-
-    return run
+    return _sharded(spec, mesh, affine_me,
+                    functools.partial(affine_me._stage_run, spec))

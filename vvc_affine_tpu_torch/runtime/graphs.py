@@ -2,8 +2,10 @@
 
 The port's counterpart of the JAX package's jitted stage builders
 (``vvc_affine_tpu/models/affine_plane.py``, ``build_stage`` and
-``build_pair_stage`` under ``jax.jit``).  Eagerly, a 1080p 2CP->3CP pair is
-some 22k (FULL) to 46k (HALF) small device launches, each issued by the
+``build_pair_stage``; ``models/affine_me.py``, ``build_stage``;
+``parallel/mesh.py``, ``build_stage_sharded``; all under ``jax.jit``).
+Eagerly, a 1080p 2CP->3CP plane pair is some 22k (FULL) to 46k (HALF)
+small device launches, a 2CP gather stage some 16k-22k, each issued by the
 host at several times its device time.  ``Graphed`` wraps such an eager
 callable for one CUDA device:
 

@@ -19,8 +19,9 @@ frame with noise in [-12, 12), written with
 counts and ``torch.cuda.max_memory_allocated`` (null on the CPU); the
 artifact records them beside the wall seconds and the seconds per frame-ref
 of the CLI's timing report (CUDA events, FULL + HALF).  On a card a
-process's first frame-ref also warms up and captures the plane engine's
-CUDA graphs (``runtime.graphs``), and its later frame-refs replay them, so
+process's first frame-ref also warms up and captures the engine's CUDA
+graphs (``runtime.graphs``: the plane engine's pairs, the gather engine's
+stages), and its later frame-refs replay them, so
 the artifact gives the first frame-ref and the later ones apart
 (``first_frame_ref_s``, ``later_frame_ref_s``; ``--frames 2`` or more has
 later ones).  It goes to ``--out``, else to a new temporary file.  Exit 0 when every log is
