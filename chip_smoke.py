@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile] [--ab DIR [--ab-k2-masks]]
+    python3 chip_smoke.py [--profile] [--ab DIR [--ab-k2-masks]] [--tracing-only]
 
 Phases, in order (any failure exits non-zero before the result line):
 
@@ -151,7 +151,27 @@ Phases, in order (any failure exits non-zero before the result line):
    (g) in this process, one pair per mode at 3840x2160 on gop_golden's
    first frame pair under the profiler, 10 K1 and 11 K2 launches each by
    the wrappers' counts (``[profile]`` lines: K1/K2 device time per launch
-   at 4K, the pair's idle share).  A ``tools`` JSON line sums them up.
+   at 4K, the pair's idle share).  A ``tools`` JSON line sums them up;
+14. the span-and-counter recorder (``runtime/tracing.py``) at 1920x1080,
+   -f 3 (6 frame-refs; the first captures), for the plane and the gather
+   pipeline on card 0 and the plane pipeline split over 2 cards (card 0
+   twice where there is one), each on graphs captured anew (the builders'
+   caches are cleared, so earlier phases' graphs are not reused): the
+   ``graphs.nodes`` (per graph, by type, read through the CUDA driver at
+   the first replayed frame-ref) must equal the graphs' own; a second
+   pipeline of the same configuration, captured with the recorder off and
+   then replayed under one, must count the same nodes; per replayed
+   frame-ref ``graphs.nodes_replayed`` must equal the sum of its graphs'
+   nodes and ``graphs.replays`` their number; every replay's
+   ``graphs.replay.device`` events must have resolved at the drain after
+   the frame-ref's readback, with nothing else synchronised; the
+   ``graphs.*`` spans nest under ``pipeline.dispatch`` (through
+   ``mesh.issue`` of their card in the split) and ``graphs.capture``
+   sums to the graphs' ``capture_s``; with the recorder off a replayed
+   frame-ref records no CUDA event.  A ``tracing`` JSON line per
+   configuration: nodes per graph and per frame-ref, per card device and
+   issue ms per frame-ref, staging ms, capture seconds.  ``--tracing-only``
+   runs phases 1, 2 and 14 alone.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2026,6 +2046,161 @@ def run_tools(csvs, plane_logs, card):
     print(json.dumps({"tools": summary}), flush=True)
 
 
+def _ancestor(sp, name):
+    while sp is not None and sp.name != name:
+        sp = sp.parent
+    return sp
+
+
+def _key(d):
+    return json.dumps(d, sort_keys=True)
+
+
+def _traced_pipeline(frames, engine, devices):
+    """Phase 14 for one configuration: returns its ``tracing`` line."""
+    import torch
+
+    from vvc_affine_tpu_torch.models import affine_me, affine_plane
+    from vvc_affine_tpu_torch.models.pipeline import (AffineMEPipeline,
+                                                      PipelineConfig)
+    from vvc_affine_tpu_torch.parallel import mesh as pmesh
+    from vvc_affine_tpu_torch.runtime import tracing
+
+    orig, recon = frames
+    label = f"{engine} on {[str(d) for d in devices]}"
+
+    def make():
+        # graphs captured anew, not those an earlier phase left cached
+        for cached in (affine_plane._pair_fn, affine_plane._stage_fn,
+                       affine_me._stage_fn):
+            cached.cache_clear()
+        return AffineMEPipeline(PipelineConfig(
+            FW, FH, 32, device=devices[0], engine=engine,
+            mesh=pmesh.make_mesh(devices) if len(devices) > 1 else None))
+
+    def graphed(pipe):
+        fns = list(pipe.pairs.values()) + list(pipe.stages.values())
+        return [g for fn in fns
+                for g in getattr(fn, "per_device", {None: fn}).values()]
+
+    pipe = make()
+    per_ref, drains = [], []
+    with tracing.record() as rec:
+        def on_result(r):
+            r.costs.cpu(), r.cpmvs.cpu()
+            if r.pred == 3:
+                per_ref.append(list(rec.spans))
+                drains.append((rec.drain(), rec.unresolved))
+        pipe.encode(orig, recon, on_result)
+    graphs_ = graphed(pipe)
+    nodes = [dict(g.nodes) for g in graphs_]
+    setup, _ = drains[0]
+    # each graph's nodes are counted once, at its first traced replay
+    first = drains[1][0]["counters"].get("graphs.nodes", [])
+    own = [{"card": str(g.device), **n} for g, n in zip(graphs_, nodes)]
+    _require("graphs.nodes" not in setup["counters"] and sorted(
+        map(_key, first)) == sorted(map(_key, own)),
+        f"tracing {label}: graphs.nodes {first} at the first replay "
+        f"against the graphs' own {own}")
+    _require(all("graphs.nodes" not in a["counters"] for a, _ in drains[2:]),
+             f"tracing {label}: graphs.nodes counted twice")
+    cap = setup["spans"]["graphs.capture"]
+    _require(cap["count"] == len(graphs_) and abs(
+        cap["host_s"] - sum(g.capture_s for g in graphs_)) < 1e-6,
+        f"tracing {label}: graphs.capture {cap} against capture_s "
+        f"{[g.capture_s for g in graphs_]}")
+    per_frame_ref = sum(n["total"] for n in nodes)
+    cards = sorted({str(g.device) for g in graphs_})
+    for k, (agg, unresolved) in enumerate(drains[1:], 1):
+        c = agg["counters"]
+        _require(c["graphs.nodes_replayed"] == per_frame_ref
+                 and c["graphs.replays"] == len(graphs_),
+                 f"tracing {label}: frame-ref {k}: {c}, want "
+                 f"{per_frame_ref} nodes in {len(graphs_)} replays")
+        dev = agg["device"]
+        _require(unresolved == 0 and sorted(dev) == cards and sum(
+            d["replays"] for d in dev.values()) == len(graphs_),
+            f"tracing {label}: frame-ref {k}: device {dev}, "
+            f"{unresolved} unresolved")
+    for spans in per_ref[1:]:
+        for sp in spans:
+            if sp.name.startswith("graphs."):
+                d = _ancestor(sp, "pipeline.dispatch")
+                _require(d is not None and "poc" in d.attrs,
+                         f"tracing {label}: {sp} outside a dispatch")
+                if len(devices) > 1:
+                    issue = _ancestor(sp, "mesh.issue")
+                    _require(issue is not None and issue.attrs["card"]
+                             == sp.attrs["card"],
+                             f"tracing {label}: {sp} outside its card's "
+                             f"issue")
+    # a second capture of the same configuration, with the recorder off,
+    # counts the same nodes when a recorder replays it
+    again = make()
+    again.encode(orig[:1], recon[:1])
+    _require(all(g.graph is not None and g.nodes is None
+                 for g in graphed(again)) and not any(
+        g is h for g in graphed(again) for h in graphs_),
+        f"tracing {label}: the second pipeline did not capture anew")
+    with tracing.record():
+        again.encode(orig[:1], recon[:1])
+    _require([dict(g.nodes) for g in graphed(again)] == nodes,
+             f"tracing {label}: a second capture counts "
+             f"{[g.nodes for g in graphed(again)]}, the first {nodes}")
+    del again
+    # with the recorder off a replay records no CUDA event
+    recorded = []
+    real = torch.cuda.Event.record
+    torch.cuda.Event.record = lambda self, *a: (recorded.append(1),
+                                                real(self, *a))[1]
+    try:
+        pipe.encode(orig[:1], recon[:1])
+    finally:
+        torch.cuda.Event.record = real
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    _require(not recorded, f"tracing {label}: {len(recorded)} CUDA events "
+                           f"recorded with the recorder off")
+    replayed = [a for a, _ in drains[1:]]
+    n = len(replayed)
+
+    def mean_ms(name):
+        return sum(a["spans"].get(name, {"host_s": 0.0})["host_s"]
+                   for a in replayed) * 1e3 / n
+
+    line = {
+        "config": label, "graphs": len(graphs_), "nodes_per_graph": nodes,
+        "nodes_per_frame_ref": per_frame_ref, "replayed_frame_refs": n,
+        "device_ms_per_frame_ref": {
+            c: sum(a["device"][c]["s"] for a in replayed) * 1e3 / n
+            for c in cards},
+        **{f"{name}_ms_per_frame_ref": mean_ms(name) for name in (
+            "graphs.replay", "graphs.copy_in", "graphs.clone_out",
+            "pipeline.dispatch", "pipeline.lambda", "pipeline.put",
+            "pipeline.put.pin", "mesh.pin", "mesh.issue")},
+        "capture_s": cap["host_s"],
+        "bytes_staged": setup["counters"]["pipeline.bytes_staged"]}
+    print(json.dumps({"tracing": line}), flush=True)
+    return line
+
+
+def check_tracing():
+    """Phase 14: the recorder's spans, counters and replay events on the
+    card (module docstring)."""
+    import torch
+
+    from vvc_affine_tpu_torch import testing
+
+    frames = testing.affine_gop(FW, FH, 3, seed=14)
+    card = torch.device("cuda:0")
+    split = ([torch.device("cuda", i) for i in range(2)]
+             if torch.cuda.device_count() >= 2 else [card, card])
+    for engine, devices in (("plane", [card]), ("gather", [card]),
+                            ("plane", split)):
+        _traced_pipeline(frames, engine, devices)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2046,6 +2221,8 @@ def main(argv=None) -> int:
                              "per-sample border masks (the first K2 "
                              "design's interface, commit 1852060) "
                              "where this tree's takes per-block flags")
+    parser.add_argument("--tracing-only", action="store_true",
+                        help="run phases 1, 2 and 14 (the recorder) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2059,6 +2236,14 @@ def main(argv=None) -> int:
     t_start = time.time()
     card = card_info()
     build_kernels()
+    if args.tracing_only:
+        check_tracing()
+        print(f"[total] {time.time() - t_start:.1f} s", flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     rng = np.random.default_rng(2026)
     tables = {m: ap.build_tables(ap.PlaneSpec(m, 2, FW, FH), dev)
@@ -2100,6 +2285,7 @@ def main(argv=None) -> int:
         check_gather_graphs()
         check_split(csvs, plane_logs, main_s)
         run_tools(csvs, plane_logs, card)
+    check_tracing()
 
     print(f"[total] {time.time() - t_start:.1f} s", flush=True)
     print(card, flush=True)

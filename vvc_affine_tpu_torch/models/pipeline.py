@@ -14,7 +14,10 @@ the stages are split over its devices along the CTU axis
 With timing, each pair (or stage) dispatch is bracketed by CUDA events on
 the card — the analogue of the reference's per-kernel event profiling
 (main.cpp:862-866) — and its end event is waited on before the time is
-read.
+read.  While a ``runtime.tracing`` recorder is active, the staging of each
+frame (``pipeline.put``, with its ``pipeline.bytes_staged`` per card; its
+pin on one card, ``pipeline.put.pin``), the lambda (``pipeline.lambda``)
+and each dispatch (``pipeline.dispatch``) are spans.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.models import affine_me, affine_plane
 from vvc_affine_tpu_torch.parallel import mesh as pmesh
 from vvc_affine_tpu_torch.runtime.frames import check_samples
+from vvc_affine_tpu_torch.runtime import tracing
 from vvc_affine_tpu_torch.runtime.refmanager import ReferenceBuffer
 
 PRED_FULL_2CP, PRED_FULL_3CP, PRED_HALF_2CP, PRED_HALF_3CP = range(4)
@@ -161,15 +165,17 @@ class AffineMEPipeline:
         stamps per (pred, refIdx, POC) as the reference prints them
         (main.cpp:764-955)."""
         fn = self.stages[key]
-        if timing is None:
-            return fn(ref_dev, orig_dev, lam, prev)
-        label = f"EXEC {self.PRED_LABEL[pred]} POC {poc} ref {ref_idx}"
-        timing.stamp(f"START {label}")
-        with _Timer(self._devices) as tm:
-            out = fn(ref_dev, orig_dev, lam, prev)
-        timing.stamp(f"FINISHED {label}")
-        timing.add(pred, tm.seconds, label)
-        return out
+        with tracing.span("pipeline.dispatch", poc=poc, ref_idx=ref_idx,
+                          mode=key[0], n_cp=key[1]):
+            if timing is None:
+                return fn(ref_dev, orig_dev, lam, prev)
+            label = f"EXEC {self.PRED_LABEL[pred]} POC {poc} ref {ref_idx}"
+            timing.stamp(f"START {label}")
+            with _Timer(self._devices) as tm:
+                out = fn(ref_dev, orig_dev, lam, prev)
+            timing.stamp(f"FINISHED {label}")
+            timing.add(pred, tm.seconds, label)
+            return out
 
     def _run_pair(self, mode, base, poc, ref_idx, ref_dev, orig_dev, lam,
                   timing):
@@ -177,30 +183,39 @@ class AffineMEPipeline:
         attributed to the pair."""
         fn = self.pairs[mode]
         prev = self._zeros[mode]
-        if timing is None:
-            return fn(ref_dev, orig_dev, lam, prev)
-        lbl = (f"EXEC {self.PRED_LABEL[base]}+{self.PRED_LABEL[base + 1]} "
-               f"POC {poc} ref {ref_idx}")
-        timing.stamp(f"START {lbl}")
-        with _Timer(self._devices) as tm:
-            out = fn(ref_dev, orig_dev, lam, prev)
-        timing.stamp(f"FINISHED {lbl}")
-        timing.add_pair(base, tm.seconds, lbl)
-        return out
+        with tracing.span("pipeline.dispatch", poc=poc, ref_idx=ref_idx,
+                          mode=mode):
+            if timing is None:
+                return fn(ref_dev, orig_dev, lam, prev)
+            lbl = (f"EXEC {self.PRED_LABEL[base]}+{self.PRED_LABEL[base + 1]} "
+                   f"POC {poc} ref {ref_idx}")
+            timing.stamp(f"START {lbl}")
+            with _Timer(self._devices) as tm:
+                out = fn(ref_dev, orig_dev, lam, prev)
+            timing.stamp(f"FINISHED {lbl}")
+            timing.add_pair(base, tm.seconds, lbl)
+            return out
 
     def _put(self, frame: np.ndarray):
         """Stage a host frame on the device as int32 [fh*fw] (10-bit
         samples, ``check_samples``); on the card the copy is asynchronous
         from pinned memory.  With a mesh, once on each of its distinct
         devices (``parallel.mesh.replicate``)."""
-        check_samples(frame, "frame")
-        host = torch.from_numpy(
-            np.ascontiguousarray(frame, np.int32).reshape(-1))
-        if self.cfg.mesh is not None:
-            return pmesh.replicate(host, self.cfg.mesh)
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host
+        with tracing.span("pipeline.put") as sp:
+            check_samples(frame, "frame")
+            host = torch.from_numpy(
+                np.ascontiguousarray(frame, np.int32).reshape(-1))
+            if tracing.active is not None:
+                sp.attrs["nbytes"] = host.nbytes
+                for d in self._devices:
+                    tracing.count("pipeline.bytes_staged", host.nbytes, d)
+            if self.cfg.mesh is not None:
+                return pmesh.replicate(host, self.cfg.mesh)
+            if self.device.type == "cuda":
+                with tracing.span("pipeline.put.pin", card=self.device):
+                    return host.pin_memory().to(self.device,
+                                                non_blocking=True)
+            return host
 
     def encode(
         self,
@@ -228,10 +243,11 @@ class AffineMEPipeline:
         for curr in range(n_frames):
             poc = curr + 1
             num_refs = min(C.MAX_REFS, poc)
-            lam = torch.tensor(np.float32(C.lambda_for(cfg.qp, poc)),
-                               dtype=torch.float32, device=self.device)
-            if cfg.mesh is not None:
-                lam = pmesh.replicate(lam, cfg.mesh)
+            with tracing.span("pipeline.lambda", poc=poc):
+                lam = torch.tensor(np.float32(C.lambda_for(cfg.qp, poc)),
+                                   dtype=torch.float32, device=self.device)
+                if cfg.mesh is not None:
+                    lam = pmesh.replicate(lam, cfg.mesh)
 
             # reference list update: recon frame (poc-1) enters slot 0
             frames_by_poc[poc - 1] = self._put(ref_frames[curr])

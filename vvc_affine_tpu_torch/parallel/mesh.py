@@ -28,7 +28,11 @@ stay outside the graphs.  In one process a sharded
 stage returns the whole result on the mesh's first device.  In a run of
 several processes (``runtime.distributed``) each process runs its own
 shards, and a sharded stage returns this process's rows as a
-``ProcessBlock``, which ``distributed.gather_to_host`` gathers.
+``ProcessBlock``, which ``distributed.gather_to_host`` gathers.  While a
+``runtime.tracing`` recorder is active, the input moves (``mesh.inputs``),
+each distinct device's issue (``mesh.issue``, attribute ``card``), the
+join (``mesh.join``) and ``replicate``'s pin and copy to each card
+(``mesh.pin``) are spans.
 
 Not ported, because they are TPU or XLA workarounds: the escape-counter
 telemetry and its psums, ahead-of-time compilation (``precompile``) and
@@ -46,7 +50,7 @@ import torch
 from vvc_affine_tpu_torch import geometry as G
 from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.models import affine_me, affine_plane
-from vvc_affine_tpu_torch.runtime import graphs
+from vvc_affine_tpu_torch.runtime import graphs, tracing
 
 
 @dataclass(frozen=True)
@@ -96,7 +100,8 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
     out = {}
     for d in distinct_devices(mesh):
         if d.type == "cuda" and x.device.type == "cpu":
-            out[d] = x.pin_memory().to(d, non_blocking=True)
+            with tracing.span("mesh.pin", card=d):
+                out[d] = x.pin_memory().to(d, non_blocking=True)
         else:
             out[d] = x.to(d)
     return out
@@ -212,13 +217,16 @@ def _sharded(spec, mesh: Mesh, engine, core, prep=None):
     per_device = {d: on_device(d) for d in split.devices}
 
     def run(ref_flat, orig_flat, lam, prev):
-        inputs = split.inputs(ref_flat, orig_flat, lam, prev)
+        with tracing.span("mesh.inputs"):
+            inputs = split.inputs(ref_flat, orig_flat, lam, prev)
         outs = {}
         for d, fn in per_device.items():
-            flat = fn(*inputs[d])
+            with tracing.span("mesh.issue", card=d):
+                flat = fn(*inputs[d])
             n = len(flat) // len(shards[d])
             outs[d] = iter([flat[k:k + n] for k in range(0, len(flat), n)])
-        return split.join([next(outs[d]) for d, _, _ in split.shards])
+        with tracing.span("mesh.join"):
+            return split.join([next(outs[d]) for d, _, _ in split.shards])
 
     run.per_device = per_device
     return run
