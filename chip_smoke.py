@@ -27,9 +27,19 @@ Phases, in order (any failure exits non-zero before the result line):
    per mode at 416x240, called twice on the card (the warm-up that
    captures the pair's CUDA graph, then a replay), each bit-identical to
    the CPU's costs and CPMVs;
+5b. the motion-plane kernel (``csrc/mvplanes.cu``, ``check_mvplanes``):
+   against its plain version on the card, bit for bit, at 1920x1080 and
+   3840x2160 (also padded to 512 CTUs and as the split's last shard), both
+   modes, 2CP and 3CP, on random CPMVs, CPMVs at +-MV_MAX, CUs spread over
+   the limit, zero CPMVs, the four mixed, zoom and rotation; its time
+   beside its bytes bound and the plain version's; a captured 1080p pair
+   per mode replayed once: 10 motion-plane launches, outputs equal to the
+   eager oracle's and to the eager pair with the plain motion planes, and
+   the graphs' nodes per frame-ref (a ``mvplanes`` JSON line);
 6. the main path: ``cli.main`` at 1920x1080, -f 2, -q 32 on synthetic
    affine-motion content, with the launch counts zeroed just before and
-   read just after (K1 must launch 60 times, K2 66), and the decision logs
+   read just after (K1 must launch 60 times, K2 66, the motion-plane
+   kernel 60), and the decision logs
    checked for row count, shape and range.  Every pair on the card is one
    CUDA graph (``runtime/graphs.py``): the first frame-ref warms up and
    captures, the other two replay; the run's peak device memory;
@@ -38,9 +48,10 @@ Phases, in order (any failure exits non-zero before the result line):
    (one warm-up, three replays) and the 2CP and 3CP stages likewise, every
    output bit-identical to the eager loop's (``eager_pair_fn``,
    ``eager_stage_fn``) on the same set, also after the later replays, and
-   each call launching 10 K1 and 11 K2; (b) the 1080p -f 2 pipeline with
-   each pair run eagerly: its 40 logs byte-identical to phase 6's, K1/K2
-   60/66; (c) a ``graph`` JSON line: seconds per frame-ref of the eager run
+   each call launching 10 K1, 11 K2 and 10 motion-plane kernels; (b) the
+   1080p -f 2 pipeline with each pair run eagerly: its 40 logs
+   byte-identical to phase 6's, K1/K2/motion planes 60/66/60; (c) a
+   ``graph`` JSON line: seconds per frame-ref of the eager run
    and of phase 6 (its first, capturing frame-ref apart), capture seconds
    per pair and stage, K1/K2 launches, device memory of both runs, and
    with ``--profile`` the device busy share of a replayed and of an eager
@@ -106,9 +117,10 @@ Phases, in order (any failure exits non-zero before the result line):
    held on the one card: (a) ``AffineMEPipeline`` with ``mesh=make_mesh(
    [cuda:0] * N)``, N = 2 and 4 (135 CTUs pad to 136, so a padding CTU
    runs), at 1920x1080 -f 2 on phase 6's CSVs, logs written through
-   ``reporting``: all 40 byte-identical to phase 6's, K1 launched N x 60
-   and K2 N x 66 times; on a machine with N cards also ``cli.main
-   --NumChips N`` over N distinct cards; (b) two processes of ``python -m
+   ``reporting``: all 40 byte-identical to phase 6's, K1 launched N x 60,
+   K2 N x 66 and the motion-plane kernel N x 60 times; on a machine with
+   N cards also ``cli.main --NumChips N`` over N distinct cards; (b) two
+   processes of ``python -m
    vvc_affine_tpu_torch.cli --Coordinator 127.0.0.1:<free port>
    --NumProcesses 2 --ProcessId k`` on card 0 (and, with two cards, on
    card k) and phase 6's CSVs: both exit 0 within a timeout (else both are
@@ -143,9 +155,10 @@ Phases, in order (any failure exits non-zero before the result line):
    the card bit-identical to the CPU golden of its child; (e)
    ``gop_golden`` at 3840x2160 -f 2 (510 CTUs, 3 frame-refs: the first
    captures the graphs, two replay): the plane and the gather CLI's 40
-   logs byte-identical, K1/K2 launched 60/66 times in the plane child and
-   0/0 in the gather child, each child's first frame-ref, replayed
-   frame-refs and peak memory on ``[tools]`` lines; (f) ``scaling_bench``
+   logs byte-identical, K1/K2/motion planes launched 60/66/60 times in the
+   plane child and none in the gather child, each child's first
+   frame-ref, replayed frame-refs and peak memory on ``[tools]`` lines;
+   (f) ``scaling_bench``
    at 1080p over 1, 2 and 4 shards (card 0 repeated where there are fewer
    cards): the same result digest for every count (``[scaling]`` lines);
    (g) in this process, one pair per mode at 3840x2160 on gop_golden's
@@ -200,8 +213,12 @@ REPLACES = {"warp": "vvc_affine_tpu/ops/warp.py:252",
             **{f"probe_{p}": f"tools/mosaic_probe.py:{line}" for p, line in (
                 ("k_a", 59), ("k_b", 63), ("k_c", 69), ("k_d_rows", 78),
                 ("k_d_lanes", 82), ("k_e", 74))}}
-# K1 and K2 launches per 2CP->3CP pair, FULL + HALF, per frame-ref
-PAIR_LAUNCHES = {"warp": 20, "blockreduce": 22}
+# K1, K2 and motion-plane launches per 2CP->3CP pair, FULL + HALF, per
+# frame-ref
+PAIR_LAUNCHES = {"warp": 20, "blockreduce": 22, "mvplanes": 20}
+# phase 5b's kinds of CPMVs
+MV_KINDS = ("random", "mv_max", "spread", "zero", "mixed", "zoom",
+            "rotation")
 
 
 def _require(ok, msg):
@@ -519,6 +536,164 @@ def check_card_vs_cpu():
               f"and replay) == CPU (costs int64, CPMVs int32)", flush=True)
 
 
+def _mv_cpmvs(t, kind, rng):
+    """Phase 5b's CPMVs int32 [nCtu, nCU, 3, 2] on the tables' device:
+    random (|v| <= 3000), at +-MV_MAX, RT and LB far enough from LT that
+    every CU's sub-block spread is over the limit, zero, those four mixed
+    per CU, or the zoom and rotation of ``_cpmv_field``."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch import constants as C
+
+    if kind in ("zoom", "rotation"):
+        return _cpmv_field(t, None, kind)
+    shape = (t.n_ctus, t.n_cus, 3, 2)
+
+    def one(kind):
+        if kind == "random":
+            return rng.integers(-3000, 3001, size=shape)
+        if kind == "mv_max":
+            return rng.choice([C.MV_MIN, C.MV_MAX, -C.MV_MAX], size=shape)
+        if kind == "spread":
+            lt = rng.integers(-500, 501, size=shape[:2] + (1, 2))
+            cp = lt + (rng.integers(2000, 8000, size=shape)
+                       * rng.choice([-1, 1], size=shape))
+            cp[:, :, 0] = lt[:, :, 0]
+            return cp
+        return np.zeros(shape, np.int64)
+
+    if kind == "mixed":
+        cp = np.choose(rng.integers(0, 4, size=shape[:2])[..., None, None],
+                       [one(k) for k in MV_KINDS[:4]])
+    else:
+        cp = one(kind)
+    return torch.as_tensor(np.clip(cp, C.MV_MIN, C.MV_MAX).astype(np.int32),
+                           device=t.within.device)
+
+
+def _mv_cost(t):
+    """Bytes and operations the motion-plane kernel needs for one call: the
+    four int32 planes out; the CUs' CPMVs, corners and in-frame flags and
+    the block table in, once; about 60 integer operations per block."""
+    n = t.n_ctus * t.n_bins * 1024
+    nbytes = (n * 16 + t.n_ctus * t.n_cus * (24 + 4 + 4 + 1)
+              + t.mv_slots.numel() * 4)
+    return nbytes, n * 60
+
+
+def check_mvplanes():
+    """Phase 5b: the motion-plane kernel (``csrc/mvplanes.cu``).  (a) At
+    1920x1080 and 3840x2160, FULL and HALF, 2CP and 3CP, on every kind of
+    ``_mv_cpmvs``: ``affine_plane._mv_planes`` (one kernel launch) equals
+    its plain version ``_mv_planes_plain`` run on the card, bit for bit;
+    and on the 4K tables padded to 512 CTUs, whole and as the last shard's
+    ``ctu_rows``.  (b) Per (size, mode, n_cp) the kernel's time (bare
+    launches, CUDA events) beside its bytes bound and the plain version's
+    time.  (c) Per mode at 1080p, a new captured pair (``Graphed`` around
+    ``eager_pair_fn``) and its replay on phase 6b's first input set: 10
+    K1, 11 K2 and 10 motion-plane launches per replay, outputs bit-identical
+    to the eager oracle's and to the eager pair with the plain motion
+    planes; the captured graphs' nodes (``runtime.graphs.count_nodes``)
+    per pair and per frame-ref.  Prints a ``mvplanes`` JSON line and
+    returns the kernel's row of the ``kernels`` line (its ``launches``
+    filled in by phase 6)."""
+    import numpy as np
+    import torch
+
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+    from vvc_affine_tpu_torch.ops import mvplanes as mvp
+    from vvc_affine_tpu_torch.runtime import graphs
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(515)
+    timed = []
+    for w, h in ((FW, FH), (3840, 2160)):
+        for mode in ("full", "half"):
+            t = ap.build_tables(ap.PlaneSpec(mode, 2, w, h), dev)
+            tp = ap.build_tables(ap.PlaneSpec(mode, 2, w, h), dev, 512)
+            layouts = {"": t}
+            if w == 3840:
+                layouts.update({" padded": tp,
+                                " last shard": ap.ctu_rows(tp, 384, 512)})
+            for n_cp in (2, 3):
+                spec = ap.PlaneSpec(mode, n_cp, w, h)
+                for name, tt in layouts.items():
+                    for kind in MV_KINDS if not name else ("mixed",):
+                        cp = _mv_cpmvs(tt, kind, rng)
+                        kernels.reset_launches()
+                        got = ap._mv_planes(spec, tt, cp)
+                        torch.cuda.synchronize()
+                        _require(kernels.launches["mvplanes"] == 1,
+                                 f"mvplanes launched {kernels.launches}")
+                        want = ap._mv_planes_plain(spec, tt, cp)
+                        _require(all(
+                            g.dtype == v.dtype and torch.equal(g, v)
+                            for g, v in zip(got, want, strict=True)),
+                            f"mvplanes {w}x{h} {mode} {n_cp}CP{name} "
+                            f"{kind}: kernel differs from the plain version")
+                cp = _mv_cpmvs(t, "random", rng)
+                planes, run = mvp.bind_mv_planes(
+                    cp, t.abs_x, t.abs_y, t.within, t.mv_slots, n_cp, w, h)
+                bound_ms, bound_by = _bound(*_mv_cost(t))
+                timed.append({
+                    "frame": f"{w}x{h}", "mode": mode, "n_cp": n_cp,
+                    "planes": f"{t.n_ctus} CTUs x {t.n_bins} bins",
+                    "ms": _median_ms(run, 5, 20), "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "plain_ms": _median_ms(lambda: ap._mv_planes_plain(
+                        spec, t, cp), 3, 2)})
+                del planes, run
+            print(f"[mvplanes] {w}x{h} {mode}: kernel == plain on "
+                  f"{len(MV_KINDS)} kinds x 2CP/3CP"
+                  f"{', padded and last shard' if w == 3840 else ''}",
+                  flush=True)
+            del t, tp, layouts
+        torch.cuda.empty_cache()
+    args0 = _graph_inputs()[0]
+    nodes, one = {}, _path_launches(
+        {k: v // 2 for k, v in PAIR_LAUNCHES.items()})
+    for mode in ("full", "half"):
+        s2, s3 = (ap.PlaneSpec(mode, n, FW, FH) for n in (2, 3))
+        eager = ap.eager_pair_fn(s2, s3, dev)
+        pair = graphs.Graphed(eager, dev, eager.check)
+        args = args0[mode]
+        pair(*args)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = pair(*args)
+        torch.cuda.synchronize()
+        _require(kernels.launches == one, f"{mode} pair replay launched "
+                                          f"{kernels.launches}, want {one}")
+        _same_outputs(f"{mode} pair (mvplanes kernel)", got, eager(*args))
+        saved = ap._mv_planes
+        ap._mv_planes = ap._mv_planes_plain
+        try:
+            plain = eager(*args)
+        finally:
+            ap._mv_planes = saved
+        _same_outputs(f"{mode} pair with the plain motion planes", got, plain)
+        nodes[mode] = graphs.count_nodes(pair.graph)
+        del pair, got, plain
+    line = {"kernel": "mvplanes", "times": timed,
+            "nodes_per_pair": nodes,
+            "nodes_per_frame_ref": sum(n["total"] for n in nodes.values()),
+            "launches_per_pair_replay": one["mvplanes"],
+            **kernels.attributes("mvplanes")}
+    print(json.dumps({"mvplanes": line}), flush=True)
+    full = [r for r in timed if r["frame"] == f"{FW}x{FH}"
+            and r["mode"] == "full"]
+    return {"name": "mvplanes", "route": "cuda",
+            "source": "vvc_affine_tpu_torch/csrc/mvplanes.cu",
+            "replaces": None, "launches": None, "max_abs_err": 0,
+            **{k: sum(r[k] for r in full) / len(full)
+               for k in ("ms", "bound_ms", "plain_ms")},
+            "bound_by": full[0]["bound_by"], "library_ms": None,
+            **kernels.attributes("mvplanes"),
+            "shape": f"1080p full: {full[0]['planes']}, mean of 2CP and 3CP"}
+
+
 def _log_bytes(prefix):
     """name (without the prefix) -> bytes of every decision log"""
     from vvc_affine_tpu_torch.runtime import reporting
@@ -569,8 +744,8 @@ def run_main_path(n_ctu, tmp):
     _require(rc == 0, f"cli.main returned {rc}")
     _require(launches == _path_launches(
         {k: 3 * v for k, v in PAIR_LAUNCHES.items()}),
-             f"main path launches {launches}, want warp 60 and "
-             f"blockreduce 66")
+             f"main path launches {launches}, want warp 60, "
+             f"blockreduce 66 and mvplanes 60")
     n_rows = 0
     for pred in range(4):
         for path in reporting.log_paths(prefix, pred):
@@ -1622,8 +1797,8 @@ def _pipeline_run(csvs, devices=None, eager=False, engine="plane",
 def run_eager_path(csvs, plane_logs):
     """Phase 6b(b): the 1080p -f 2 pipeline with every pair run eagerly, in
     this process after phase 6: its 40 logs byte-identical to phase 6's
-    (produced by the graphs), 60 K1 and 66 K2 launches.  Returns its
-    seconds per frame-ref and memory."""
+    (produced by the graphs), 60 K1, 66 K2 and 60 motion-plane launches.
+    Returns its seconds per frame-ref and memory."""
     logs, launches, frame_s, memory = _pipeline_run(csvs, eager=True)
     want = _path_launches({k: 3 * v for k, v in PAIR_LAUNCHES.items()})
     _require(launches == want, f"eager pipeline: launches {launches}, "
@@ -2258,14 +2433,17 @@ def main(argv=None) -> int:
     warp_stats = check_warp(tables, ref, rng)
     br_stats = check_blockreduce(tables, orig_pl, rng)
     check_card_vs_cpu()
+    mv_row = check_mvplanes()
     with tempfile.TemporaryDirectory() as work:
         launches, csvs, plane_logs, main_s, main_memory = run_main_path(
             tables["full"].n_ctus, work)
+        mv_row["launches"] = launches["mvplanes"]
         capture_s = check_graphs()
         eager_s, eager_memory = run_eager_path(csvs, plane_logs)
         path = capture_path_launches()
         rows, bound = time_kernels(tables, warp_stats, br_stats, launches,
                                    path)
+        rows.append(mv_row)
         if args.ab:
             ab_compare(args.ab, path, tables, args.ab_k2_masks)
         del path

@@ -29,6 +29,7 @@ import torch
 from tests._child import _raise_stack
 from vvc_affine_tpu.models import affine_plane as jap
 from vvc_affine_tpu.parallel import mesh as jmesh
+from vvc_affine_tpu_torch import planes as tplanes
 from vvc_affine_tpu_torch import testing
 from vvc_affine_tpu_torch.models import affine_me as tme
 from vvc_affine_tpu_torch.models import affine_plane as tap
@@ -142,11 +143,14 @@ def test_build_tables_match_jax(mode, fw, fh):
     assert tap.tables_from_numpy(jt._asdict(), "cpu")._asdict().keys() \
         == tt._asdict().keys()
     shared = [f for f in tap.PlaneTables._fields if f in jt._fields]
-    # all but the port's own cls_t and repl (K2's replication flags)
-    assert len(shared) == len(tap.PlaneTables._fields) - 2
+    # all but the port's own cls_t, repl (K2's replication flags) and
+    # mv_slots (the motion-plane kernel's block table)
+    assert len(shared) == len(tap.PlaneTables._fields) - 3
     np.testing.assert_array_equal(
         tt.repl.numpy(),
         tbr.replication_flags(torch.from_numpy(jt.border_packed)).numpy())
+    np.testing.assert_array_equal(tt.mv_slots.numpy(),
+                                  tplanes.bin_slot_table(mode))
     for f in shared:
         a, b = getattr(tt, f), getattr(jt, f)
         if isinstance(a, torch.Tensor):

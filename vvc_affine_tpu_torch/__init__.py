@@ -5,14 +5,16 @@ JAX package ``vvc_affine_tpu``, in PyTorch on an NVIDIA card, where each
 stage of either engine and each plane 2CP->3CP pair runs as one captured
 CUDA graph (``runtime/graphs.py``, the counterpart of the JAX package's
 ``jax.jit``); on the CPU everything runs eagerly.
-The two kernels of the dense plane engine — the warp (motion-compensated
-prediction of every 4x4 block of a CTU plane) and the block reduction (SATD,
-Sobel gradients and the five normal-equation moments) — are hand-written
-CUDA (``csrc/``), built with ``nvcc`` at first use (``kernels.py``), as are
-the six window probes of ``tools/mosaic_probe.py``.  Every kernel wrapper
-keeps a plain PyTorch version of the same function, which it runs only for
-tensors on the CPU; the tests hold the port against the JAX package on the
-CPU through those plain versions.  The gather engine (``models/affine_me``,
+The three kernels of the dense plane engine — the motion planes (each 4x4
+block's displacement and filter phase from its CU's CPMVs), the warp
+(motion-compensated prediction of every 4x4 block of a CTU plane) and the
+block reduction (SATD, Sobel gradients and the five normal-equation
+moments) — are hand-written CUDA (``csrc/``), built with ``nvcc`` at first
+use (``kernels.py``), as are the six window probes of
+``tools/mosaic_probe.py``.  Every kernel wrapper keeps a plain PyTorch
+version of the same function, which it runs only for tensors on the CPU;
+the tests hold the port against the JAX package on the CPU through those
+plain versions.  The gather engine (``models/affine_me``,
 ``--Engine gather``) has no kernel of its own: plain PyTorch ops on any
 device, captured as one CUDA graph per stage on a card.  The CSV ingest
 and the decision-log writer are native C++ (``native/``), built with

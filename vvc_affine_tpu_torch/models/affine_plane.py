@@ -10,14 +10,18 @@ affine.cl:11-958/960-1950):
   half-aligned classes share planes ("bins", ``planes.bin_layout``).
   Per-block motion (integer displacement dy/dx) and filter phases (fx/fy)
   are DATA planes.
-* Each evaluate runs the two kernels of the engine: the warp K1
+* Each evaluate runs three kernels: the motion planes (``_mv_planes``)
+  turn the CUs' CPMVs into those per-block planes, the warp K1
   (``ops.warp.warp``) predicts every bin plane, and the block reduction K2
   (``ops.blockreduce.reduce_blocks``) turns each plane into per-block SATD
-  and normal-equation moments.  On CUDA tensors both are hand-written
-  kernels; on CPU tensors their plain PyTorch versions run.  Because the
-  warp computes each window's address from (dy, dx) with clamping, it is
-  exact for any displacement: none of the JAX engine's TPU dispatch
-  machinery (R-ladder, rebased windows, escape fix-up) exists here.
+  and normal-equation moments.  On CUDA tensors all three are hand-written
+  kernels (the motion planes: ``ops.mvplanes``, one launch reading the
+  static per-block table ``PlaneTables.mv_slots``); on CPU tensors their
+  plain PyTorch versions run (the motion planes' is a loop over the CU
+  classes, ``_mv_planes_plain``).  Because the warp computes each window's
+  address from (dy, dx) with clamping, it is exact for any displacement:
+  none of the JAX engine's TPU dispatch machinery (R-ladder, rebased
+  windows, escape fix-up) exists here.
 * Per-CU quantities (SATD sums, equation systems, CPMV updates) move
   between CU tensors (canonical class order — the reference's return-array
   contract) and slot planes through static slices and index tables built
@@ -47,6 +51,7 @@ from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.ops import blockreduce as blockreduce_ops
 from vvc_affine_tpu_torch.ops import cost as cost_ops
 from vvc_affine_tpu_torch.ops import mv as mv_ops
+from vvc_affine_tpu_torch.ops import mvplanes as mvplanes_ops
 from vvc_affine_tpu_torch.ops import solver as solver_ops
 from vvc_affine_tpu_torch.ops import warp as warp_ops
 from vvc_affine_tpu_torch.runtime import graphs
@@ -97,6 +102,7 @@ class PlaneTables(NamedTuple):
     bin_of: np.ndarray                 # int32 [n_cls] (host: loop structure)
     border_packed: torch.Tensor        # int32 [n_bins, 128, 128] bit-packed
     repl: torch.Tensor                 # uint8 [n_bins, NB, NB] K2 block flags
+    mv_slots: torch.Tensor             # int32 [6, n_bins, NB, NB] block table
     slab_active: torch.Tensor          # int32 [nCtus, n_bins, 16]
     strides: Tuple[int, ...]           # canonical per-class CU offsets
     cls: Tuple[P.ClassPlane, ...]
@@ -112,8 +118,9 @@ class PlaneTables(NamedTuple):
 
 
 # PlaneTables fields that are tensors (built from numpy arrays)
-_TENSOR_FIELDS = ("border_packed", "repl", "slab_active", "abs_x", "abs_y",
-                  "within", "cu_w", "cu_h", "ctu_x", "ctu_y")
+_TENSOR_FIELDS = ("border_packed", "repl", "mv_slots", "slab_active",
+                  "abs_x", "abs_y", "within", "cu_w", "cu_h", "ctu_x",
+                  "ctu_y")
 # PlaneTables fields that lead with the CTU axis (``ctu_rows``)
 _CTU_FIELDS = ("slab_active", "abs_x", "abs_y", "within", "ctu_x", "ctu_y")
 
@@ -193,6 +200,7 @@ def _tables_numpy(spec: PlaneSpec, n_ctu_pad: int = 0) -> dict:
         n_cus=lay.cus_per_ctu, n_cls=len(lay.classes),
         n_bins=len(bins), bins=bins, bin_of=bin_of,
         border_packed=border, repl=host_replication_flags(border),
+        mv_slots=P.bin_slot_table(spec.mode),
         slab_active=slab_activity(spec.mode, within),
         strides=lay.return_strides, cls=cls,
         abs_x=abs_x.astype(np.int32), abs_y=abs_y.astype(np.int32),
@@ -259,14 +267,17 @@ def tables_from_numpy(d: dict, device) -> PlaneTables:
     engine's ``PlaneTables._asdict()`` or ``_tables_numpy``); fields the
     port does not use are ignored.  The class geometry (``cls``) is the
     port's own for the mode that ``n_cls`` implies.  K2's replication flags
-    (``repl``) are host tables like the rest: taken from ``d``, or for the
-    JAX tables, which have none, derived from their host masks
-    (``host_replication_flags``).
+    (``repl``) and the motion-plane kernel's block table (``mv_slots``) are
+    host tables like the rest: taken from ``d``, or for the JAX tables,
+    which have neither, derived on the host (``host_replication_flags`` of
+    their masks; ``planes.bin_slot_table`` of the mode).
     """
     mode = {12: "full", 24: "half"}[int(d["n_cls"])]
     cls = P.plane_layout(mode)
     if "repl" not in d:
         d = {**d, "repl": host_replication_flags(d["border_packed"])}
+    if "mv_slots" not in d:
+        d = {**d, "mv_slots": P.bin_slot_table(mode)}
     kw = {k: d[k] for k in PlaneTables._fields
           if k not in _TENSOR_FIELDS + ("cls", "cls_t", "bin_of")}
     kw.update({k: torch.as_tensor(np.asarray(d[k]), device=device)
@@ -306,8 +317,23 @@ def _mv_planes(spec: PlaneSpec, t: PlaneTables, cpmvs):
 
     Returns dy, dx, fx, fy int32 [nCtu, nBins, NB, NB].  Out-of-frame CUs
     are forced to zero motion (their results are masked out downstream,
-    matching the reference's skipped-pass semantics, affine.cl:192-208).
+    matching the reference's skipped-pass semantics, affine.cl:192-208),
+    and so are blocks no class of the bin covers.  CUDA CPMVs launch the
+    hand-written kernel once (``ops.mvplanes``, on ``t.mv_slots``); CPU
+    CPMVs run the plain version, ``_mv_planes_plain``.
     """
+    if cpmvs.device.type == "cpu":
+        return _mv_planes_plain(spec, t, cpmvs)
+    return mvplanes_ops.mv_planes(cpmvs, t.abs_x, t.abs_y, t.within,
+                                  t.mv_slots, spec.n_cp, spec.frame_w,
+                                  spec.frame_h)
+
+
+def _mv_planes_plain(spec: PlaneSpec, t: PlaneTables, cpmvs):
+    """The plain version of ``_mv_planes`` (the JAX engine's): per CU
+    class, its CUs' deltas, spread flags and bases spread onto the slot
+    planes, the MVs at the slot centres rounded and clipped, and the
+    classes of a bin summed."""
     acc = [[None] * t.n_bins for _ in range(4)]
     for ci, cp_tab in enumerate(t.cls):
         ct = t.cls_t[ci]

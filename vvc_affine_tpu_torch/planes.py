@@ -213,6 +213,43 @@ def reduce_slots_to_cu(plane: torch.Tensor, cp: ClassPlane) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+# rows of ``bin_slot_table``
+SLOT_ROWS = ("cls", "cu", "cx", "cy", "log2w", "log2h")
+
+
+def bin_slot_table(mode: str) -> np.ndarray:
+    """Per 4x4 block of every bin plane, the data of the one CU covering
+    it: int32 [len(SLOT_ROWS), n_bins, NB, NB].
+
+    Rows: the class (-1 where no class of the bin covers the block), the
+    CU's canonical index within the CTU (class stride + index in the class,
+    -1 where uncovered), the slot's sub-block centre ``slot_cx`` /
+    ``slot_cy`` and log2 of the class's width and height (0 where
+    uncovered).  Classes in a bin are disjoint (``bin_layout``), and each
+    CU covers the blocks ``spread_cu_to_slots`` writes its value to.  The
+    motion-plane kernel (``csrc/mvplanes.cu``) reads it in place of the
+    per-class spreads.
+    """
+    lay = G.layout(mode)
+    _, bin_of = bin_layout(mode)
+    tab = np.zeros((len(SLOT_ROWS), int(bin_of.max()) + 1, NB, NB), np.int32)
+    tab[:2] = -1
+    for ci, cp in enumerate(plane_layout(mode)):
+        rows = tab[:, int(bin_of[ci])]
+        for g in cp.subgrids:
+            for i, cid in enumerate(g.cu_ids):
+                y0 = g.by0 + (i // g.nx) * g.bystep
+                x0 = g.bx0 + (i % g.nx) * g.bxstep
+                rows[:2, y0:y0 + g.sbh, x0:x0 + g.sbw] = np.array(
+                    [ci, lay.return_strides[ci] + cid])[:, None, None]
+        v = cp.slot_valid
+        rows[2][v] = cp.slot_cx[v]
+        rows[3][v] = cp.slot_cy[v]
+        rows[4][v] = int(np.log2(cp.width))
+        rows[5][v] = int(np.log2(cp.height))
+    return tab
+
+
 @functools.lru_cache(maxsize=None)
 def bin_layout(mode: str):
     """Pack classes with disjoint slot coverage into shared evaluation bins.

@@ -6,11 +6,12 @@ everywhere and lambda 78.949063, at 1920x1080 FULL unless told otherwise:
 
     python -m vvc_affine_tpu_torch.tools.profile_stage [WxH] [--half]
 
-Each piece of ``models/affine_plane.py`` — ``prep_inputs``, ``_mv_planes``,
-K1 (``ops.warp.warp``), K2 (``ops.blockreduce.reduce_blocks``) with and
-without ``refine``, ``_assemble_equations``, the solver
-(``ops.solver.solve_affine``), ``refine_cpmvs``, ``_evaluate`` and the whole
-stage — gets one line and one JSON row.  Every piece runs eagerly, the
+Each piece of ``models/affine_plane.py`` — ``prep_inputs``, ``_mv_planes``
+(on a card one launch of ``csrc/mvplanes.cu``), K1 (``ops.warp.warp``), K2
+(``ops.blockreduce.reduce_blocks``) with and without ``refine``,
+``_assemble_equations``, the solver (``ops.solver.solve_affine``),
+``refine_cpmvs``, ``_evaluate`` and the whole stage — gets one line and
+one JSON row.  Every piece runs eagerly, the
 whole stage too (``affine_plane.eager_stage_fn``): on a card
 ``build_stage`` replays the stage as one CUDA graph, which has no pieces
 to time; ``chip_smoke.py`` times the replay.
