@@ -40,7 +40,8 @@ def float32_reference(pipe):
     def stage(mode, n_cp, ref, orig, lam, prev):
         return reference.stage(mode, n_cp, ref, orig, fw, fh, float(lam),
                                prev=prev if n_cp == 3 else None,
-                               solver_dtype=torch.float32)
+                               solver_dtype=torch.float32,
+                               extra_iters=pipe.cfg.extra_iters)
 
     for mode in list(pipe.pairs):
         def pair(ref, orig, lam, prev, _mode=mode):

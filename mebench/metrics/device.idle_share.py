@@ -1,8 +1,8 @@
 """device.idle_share: the share, in %, of a frame-ref's wall time in
 which no kernel, copy or set ran on a card, the mean over the cell's
 cards: busy seconds per profiled frame-ref over the mean wall time of the
-run's frame-refs that ran with neither the profiler nor ``Timing``
-(``trace.idle_shares``)."""
+run's frame-refs that ran before the profiler started and without
+``Timing`` (``trace.idle_shares``)."""
 
 from mebench import trace
 

@@ -14,5 +14,6 @@ def read(rec):
     launched = p["launches"].get("blockreduce", 0)
     if n == 0 or launched == 0:
         return None
-    least = roofline.frame_ref(cfg["frame_w"], cfg["frame_h"])
+    least = roofline.frame_ref(cfg["frame_w"], cfg["frame_h"],
+                               extra_iters=cfg["extra_iters"])
     return 100 * least["k2_s"] * p["frame_refs"] / (s * launched / n)

@@ -322,8 +322,9 @@ def _lb_from_2cp(cp, g, fw, fh):
 
 
 def _stage_group(g, n_cp, ref, orig, fw, fh, lam, init, solver_dtype,
-                 block_sbs):
-    """The whole search of one stage for the CUs of group ``g``."""
+                 block_sbs, extra_iters):
+    """The whole search of one stage for the CUs of group ``g``, with
+    ``extra_iters`` gradient iterations beyond VTM's."""
     B = g.slot.numel()
     P = 2 * n_cp
     per = max(1, block_sbs // ((g.w // 4) * (g.h // 4)))
@@ -334,7 +335,7 @@ def _stage_group(g, n_cp, ref, orig, fw, fh, lam, init, solver_dtype,
     best_cost = torch.full((B,), MAX_LONG, dtype=torch.int64, device=dev)
     best_cp = torch.zeros_like(curr)
     lam32 = torch.tensor(lam, dtype=torch.float32, device=dev)
-    n_iters = ITERS[n_cp]
+    n_iters = ITERS[n_cp] + extra_iters
     for it in range(n_iters + 1):
         refine = it < n_iters
         satd = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -366,9 +367,11 @@ def _stage_group(g, n_cp, ref, orig, fw, fh, lam, init, solver_dtype,
 
 
 def stage(mode, n_cp, ref, orig, fw, fh, lam, prev=None,
-          solver_dtype=torch.float64, block_sbs=1 << 17):
+          solver_dtype=torch.float64, block_sbs=1 << 17, extra_iters=0):
     """One stage over a frame: ``ref``/``orig`` int32 [fh*fw] on any
-    device, ``prev`` the 2CP result's CPMVs for a 3CP stage.  Returns
+    device, ``prev`` the 2CP result's CPMVs for a 3CP stage,
+    ``extra_iters`` the iterations added to VTM's (the reference encoder's
+    ``--ExtraGradientIter``).  Returns
     (costs int64 [nCtu, nCU], cpmvs int32 [nCtu, nCU, 3, 2]) in result
     order."""
     dev = ref.device
@@ -384,21 +387,23 @@ def stage(mode, n_cp, ref, orig, fw, fh, lam, prev=None,
             p = flat_prev[g.slot]
             init = torch.cat([p[:, :2], _lb_from_2cp(p, g, fw, fh)[:, None]], 1)
         c, cp = _stage_group(g, n_cp, ref, orig, fw, fh, lam, init,
-                             solver_dtype, block_sbs)
+                             solver_dtype, block_sbs, extra_iters)
         costs[g.slot] = c
         cps[g.slot] = cp
     return costs.reshape(n_ctu, n_cu), cps.to(torch.int32).reshape(n_ctu, n_cu, 3, 2)
 
 
 def frame_ref(ref, orig, fw, fh, lam, solver_dtype=torch.float64,
-              modes=("full", "half")):
+              modes=("full", "half"), extra_iters=0):
     """The four decisions of one (frame, reference): for each mode its 2CP
-    stage and the 3CP stage fed from it.  Returns {(mode, nCP): (costs,
-    cpmvs)}."""
+    stage and the 3CP stage fed from it, each with ``extra_iters``
+    iterations beyond VTM's.  Returns {(mode, nCP): (costs, cpmvs)}."""
     out = {}
     for mode in modes:
         out[(mode, 2)] = stage(mode, 2, ref, orig, fw, fh, lam,
-                               solver_dtype=solver_dtype)
+                               solver_dtype=solver_dtype,
+                               extra_iters=extra_iters)
         out[(mode, 3)] = stage(mode, 3, ref, orig, fw, fh, lam,
-                               prev=out[(mode, 2)][1], solver_dtype=solver_dtype)
+                               prev=out[(mode, 2)][1], solver_dtype=solver_dtype,
+                               extra_iters=extra_iters)
     return out

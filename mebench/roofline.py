@@ -23,6 +23,10 @@ the same work whatever implements it:
   Sobel pair and 10 of the five moment products and their sums.  The 2
   other evaluates of a mode (each stage's last) need the SATD alone.
 
+A configuration's ``extra_iters`` (the reference encoder's
+``--ExtraGradientIter``) adds that many refining evaluates to each stage,
+so two K1 and two K2 launches per mode for each.
+
 A kernel's roofline share is the least time at the peaks over the time
 the profiler measured for its launches, so a count kept at the least
 work cannot read over 100%.
@@ -57,9 +61,11 @@ def inside(mode: str, fw: int, fh: int):
     return n, s
 
 
-def launches(mode: str):
-    """(K1, K2 refining, K2 SATD-only) evaluates of one mode per frame-ref."""
-    return ITERS[2] + ITERS[3] + 1, ITERS[2] + ITERS[3], 2
+def launches(mode: str, extra_iters: int = 0):
+    """(K1, K2 refining, K2 SATD-only) evaluates of one mode per frame-ref,
+    with ``extra_iters`` refining iterations added to each stage."""
+    refining = ITERS[2] + ITERS[3] + 2 * extra_iters
+    return refining + 1, refining, 2
 
 
 def _least(bytes_, ops):
@@ -81,14 +87,15 @@ def k2(mode: str, fw: int, fh: int, refine: bool):
     return _least(s * 2 + fw * fh * 2 + (s // 16) * out, s * ops)
 
 
-def frame_ref(fw: int, fh: int, modes=("full", "half")):
+def frame_ref(fw: int, fh: int, modes=("full", "half"), extra_iters: int = 0):
     """Least seconds of K1 and of K2 over one frame-ref, the launches the
-    algorithm makes (the evaluates above) and the bounds that bind."""
+    algorithm makes (the evaluates above, ``extra_iters`` more refining
+    ones per stage) and the bounds that bind."""
     t1 = t2 = 0.0
     n1 = n2 = 0
     binds = set()
     for m in modes:
-        a, b, c = launches(m)
+        a, b, c = launches(m, extra_iters)
         s1, w1 = k1(m, fw, fh)
         s2r, w2r = k2(m, fw, fh, True)
         s2s, w2s = k2(m, fw, fh, False)

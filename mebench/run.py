@@ -26,10 +26,17 @@ What a run does:
    second, the 90th percentile of frame-ref latency (from the completion
    of the one before), card joules per frame-ref (``nvidia-smi``) and
    set-up seconds; with ``--trace 1`` reports the per-layer metrics: it
-   passes the port's ``Timing`` to ``encode`` in the first half of the
-   window, then starts the next sequence without it (``Timing``
-   synchronises the card after every dispatch) and profiles a few whole
-   frame-refs of that second half;
+   records the port's spans and counters (``runtime.tracing``) from
+   before the pipeline is built, and drains them at every frame-ref's
+   completion; it passes the port's ``Timing`` to ``encode`` in the first
+   20% of the window, then starts the next sequence without it
+   (``Timing`` synchronises the card after every dispatch), and from 30%
+   of the window on profiles a few whole frame-refs, after four that meet
+   CUPTI's first-use costs (the profiler's first start initialises CUPTI,
+   which slows every launch from then on, so the frame-refs from the
+   profile on are read by no wall-clock reader).  Its set-up ends one
+   frame-ref later, at the first that captures nothing: that one's first
+   replay of each graph counts the graph's nodes;
 4. once the window has closed and the program's state is freed, holds the
    decisions of frame-refs drawn from the seed against the plain reference
    (``mebench/reference.py``): every cost and CPMV must be equal.
@@ -45,6 +52,7 @@ import time
 _T_START = time.time()      # set-up is timed from here, before any import
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -57,8 +65,12 @@ import sys  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "vvc_affine_tpu")
-# the benchmark's own ranges around its calls into the port (traced run)
-RANGES = ("encode", "readback", "callback")
+# the ranges an idle gap is charged to (traced run): the benchmark's own
+# around its calls into the port, and the port's spans
+RANGES = ("encode", "readback", "callback",
+          "pipeline.put", "pipeline.lambda", "pipeline.dispatch",
+          "graphs.copy_in", "graphs.replay", "graphs.clone_out",
+          "mesh.inputs", "mesh.issue", "mesh.join")
 
 
 def _cache_dirs() -> None:
@@ -157,6 +169,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     from vvc_affine_tpu_torch.models.pipeline import (AffineMEPipeline,
                                                       PipelineConfig)
     from vvc_affine_tpu_torch.parallel.mesh import make_mesh
+    from vvc_affine_tpu_torch.runtime import tracing
     from vvc_affine_tpu_torch.runtime.reporting import Timing
 
     bench, wl, cfg_file, mix_file = load_cell(cell)
@@ -175,9 +188,6 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     pcfg = PipelineConfig(fw, fh, cfg["qp"], extra_iters=cfg["extra_iters"],
                           device=devices[0], engine=cfg["engine"],
                           mesh=make_mesh(devices) if chips > 1 else None)
-    pipe = AffineMEPipeline(pcfg)
-    if hook is not None:
-        hook(pipe)
     n_preds = 4
     timing = None
     rf = None
@@ -190,9 +200,6 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         acts = [torch.profiler.ProfilerActivity.CPU]
         if cuda:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        # the profiler's first start initialises CUPTI: do it in set-up
-        with torch.profiler.profile(activities=acts):
-            torch.ones(1, device=devices[0]).add_(1)
         profile_refs = math.ceil(3 / chips)
 
     def sync():
@@ -200,22 +207,29 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
             for d in set(devices):
                 torch.cuda.synchronize(d)
 
-    sampler = power.Sampler(power.card_indices(devices)) if cuda else None
     st = {"seq": 0, "t_prev": None, "t0": None, "t0_epoch": None,
           "prof": None, "prof_left": 0, "after_prof": False, "n_timing": 0,
           "timed": timing is not None}
     pending, results, window = {}, {}, []
+    setup_spans = []
     setup_s = None
 
     def complete(key):
         nonlocal setup_s
         t = time.perf_counter()
         t_epoch = time.time()
+        spans = recorder.drain() if recorder is not None else None
         disp = None
         if st["timed"]:
             disp = sum(s for _, s in timing.events[st["n_timing"]:])
             st["n_timing"] = len(timing.events)
-        if st["t0"] is None:                    # the capturing frame-ref
+        if st["t0"] is None:                    # set-up
+            if spans is not None:
+                setup_spans.append(spans)
+                if "graphs.capture" in spans["spans"]:
+                    # the first replay of each graph, which counts its
+                    # nodes, is set-up too in a traced run
+                    return
             setup_s = t_epoch - _T_START
             st["t0"], st["t0_epoch"], st["t_prev"] = t, t_epoch, t
             st["cpu0"] = time.process_time()
@@ -224,30 +238,49 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         rec = {"key": key, "latency_s": t - st["t_prev"], "dispatch_s": disp,
                "timed": st["timed"],
                "profiled": st["prof"] is not None, "after_profile": st["after_prof"]}
-        st["after_prof"] = False
+        if spans is not None:
+            spans["unresolved"] = recorder.unresolved
+            rec["spans"] = spans
         window.append(rec)
         st["t_prev"] = t
         st["t_end"], st["t_end_epoch"] = t, t_epoch
         elapsed = t - st["t0"]
         if trace:
-            if st["prof"] is not None:
+            if st["prof"] is not None and "prof_t0" not in st:
+                # the first frame-refs under the profiler meet CUPTI's
+                # first-use costs: the profile is of the ones after them
+                st["warm_left"] -= 1
+                if elapsed >= seconds:
+                    st["prof"].stop()
+                    st["prof"] = None
+                elif st["warm_left"] == 0:
+                    start_profile()
+            elif st["prof"] is not None:
                 st["prof_left"] -= 1
                 if st["prof_left"] == 0 or elapsed >= seconds:
                     stop_profile()
             elif (not st["timed"] and "profile" not in st
-                  and 0.6 * seconds <= elapsed < seconds):
+                  and 0.3 * seconds <= elapsed < seconds):
+                # CUPTI is initialised here, not in set-up (docstring)
                 st["prof"] = torch.profiler.profile(activities=acts)
                 st["prof"].start()
-                with rf(tr.START):
-                    pass
-                st["prof_left"] = profile_refs
-                st["prof_t0"] = len(window)
-                st["launches0"] = dict(kernels.launches)
+                # a reference list's worth of frame-refs, each reference
+                # read once more since then; none without CUPTI
+                st["warm_left"] = 4
+                if not cuda:
+                    start_profile()
         if elapsed >= seconds:
             raise _WindowClosed
-        if st["timed"] and elapsed >= seconds / 2:
+        if st["timed"] and elapsed >= 0.2 * seconds:
             st["timed"] = False
             raise _Untimed
+
+    def start_profile():
+        with rf(tr.START):
+            pass
+        st["prof_left"] = profile_refs
+        st["prof_t0"] = len(window)
+        st["launches0"] = dict(kernels.launches)
 
     def stop_profile():
         with rf(tr.END):
@@ -276,24 +309,42 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
             results[key] = pending.pop(key)
             complete(key)
 
-    try:
-        while True:
-            try:
-                t_seq = timing if st["timed"] else None
-                if rf is not None:
-                    with rf("encode"):
+    # the traced run records the port's spans and counters from before the
+    # pipeline is built, so that its capture is recorded; a run without the
+    # trace never enters a recorder
+    with (tracing.record() if trace else contextlib.nullcontext()) as recorder:
+        pipe = AffineMEPipeline(pcfg)
+        if hook is not None:
+            hook(pipe)
+        sampler = power.Sampler(power.card_indices(devices)) if cuda else None
+        try:
+            while True:
+                try:
+                    t_seq = timing if st["timed"] else None
+                    if rf is not None:
+                        with rf("encode"):
+                            pipe.encode(orig_np, recon_np, on_result, timing=t_seq)
+                    else:
                         pipe.encode(orig_np, recon_np, on_result, timing=t_seq)
-                else:
-                    pipe.encode(orig_np, recon_np, on_result, timing=t_seq)
-            except _WindowClosed:
-                break
-            except _Untimed:
-                pass
-            st["seq"] += 1
-            pending.clear()
-    finally:
-        if sampler is not None:
-            samples = sampler.stop()
+                except _WindowClosed:
+                    break
+                except _Untimed:
+                    pass
+                st["seq"] += 1
+                pending.clear()
+        finally:
+            if sampler is not None:
+                samples = sampler.stop()
+        if recorder is not None:
+            # replays whose events a frame-ref's drain found unfinished:
+            # charged to the last frame-ref, the end of their stretch
+            sync()
+            late = recorder.drain()["device"]
+            last = window[-1]["spans"]["device"]
+            for card, d in late.items():
+                got = last.setdefault(card, {"replays": 0, "s": 0.0})
+                got["replays"] += d["replays"]
+                got["s"] += d["s"]
     n = len(window)
     launches = {k: v / max(n, 1) for k, v in kernels.launches.items() if v}
     peak = max((torch.cuda.max_memory_allocated(d) for d in devices),
@@ -346,7 +397,14 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
                   f"program {counted}, seen by the profiler {seen}",
                   file=sys.stderr)
         records = {"config": cfg, "chips": chips, "window": window,
-                   "profile": profile}
+                   "profile": profile, "setup_spans": setup_spans}
+        print(f"[spans] set-up over {len(setup_spans)} frame-refs: "
+              f"{[d['spans'].get('graphs.capture') for d in setup_spans]} "
+              f"capture; graph nodes "
+              f"{[g for d in setup_spans for g in d['counters'].get('graphs.nodes', ())]}; "
+              f"replay events left unresolved by a window frame-ref's drain: "
+              f"{sum(w['spans']['unresolved'] for w in window)}",
+              file=sys.stderr)
     del pipe, pending
     gc.collect()
     if cuda:
@@ -363,7 +421,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         ref = torch.from_numpy(recon_np[label].astype("int32").reshape(-1)).to(devices[0])
         orig = torch.from_numpy(orig_np[poc - 1].astype("int32").reshape(-1)).to(devices[0])
         want = reference.frame_ref(ref, orig, fw, fh,
-                                   reference.lambda_for(cfg["qp"], poc))
+                                   reference.lambda_for(cfg["qp"], poc),
+                                   extra_iters=cfg["extra_iters"])
         got = results[(seq, poc, ref_idx)]
         d = sum(differing(got[p], want[reference.PREDS[p]]) for p in range(4))
         diff += d

@@ -67,15 +67,18 @@ def test_sound_run_is_correct():
 
 
 @pytest.mark.parametrize("cell,fw,steady,host_metrics", [
-    ("b1080_ld4_plane", 128, 1, {"pipeline.dispatch_ms", "pipeline.outside_dispatch_ms"}),
-    ("a2160_ld4_split4", 256, 0, {"pipeline.dispatch_ms", "pipeline.outside_dispatch_ms.split"}),
+    ("b1080_ld4_plane", 128, 1, {"pipeline.dispatch_ms", "pipeline.outside_dispatch_ms",
+                                 "pipeline.put_ms"}),
+    ("a2160_ld4_split4", 256, 0, {"pipeline.dispatch_ms", "pipeline.outside_dispatch_ms.split",
+                                  "pipeline.put_ms.split"}),
 ])
 def test_traced_run_on_the_cpu(cell, fw, steady, host_metrics):
     """The traced run: ``Timing`` in the first half of the window, the
-    profile in the second, untimed half; the pipeline's metrics are read
-    and the check is the same.  (The CPU has no device lane, so the
-    device metrics are left out here; the split on the CPU is too slow to
-    reach a frame-ref with four references in the window.)"""
+    profile in the second, untimed half; the pipeline's metrics and the
+    port's staging spans are read and the check is the same.  (The CPU
+    has no device lane and no CUDA graph, so the device metrics and the
+    graphs' are left out here; the split on the CPU is too slow to reach
+    a frame-ref with four references in the window.)"""
     cfg, mix = _small(cell, fw)
     mix["check"] = {"early": 1, "steady": steady}
     out = run.run_cell(cell, 2**31 + 7, 40.0, True, device="cpu",

@@ -1,7 +1,9 @@
 """What the traced run reads from ``torch.profiler``: per card, the device
 operations inside the profiled window, their union (busy time), and the
-idle gaps between them, each charged to the benchmark's own
-``record_function`` range that the host was in when the gap began.
+idle gaps between them, each charged to the ``record_function`` range
+that the host was in when the gap began: the benchmark's own around its
+calls, or one of the port's spans, which are ranges while the profiler
+runs (``vvc_affine_tpu_torch.runtime.tracing``).
 
 The events are read raw from the profiler's results (no event tree is
 built: a 1080p frame-ref is some 66k device events).  The window is the
@@ -92,6 +94,12 @@ def summarize(events: Iterable, range_names: Iterable[str]) -> Dict:
             if a > t:
                 i = bisect.bisect_right(bounds, t) - 1
                 label = labels[i] if i >= 0 else "encode.other"
+                if t == w0 and label == "encode.other":
+                    # the ranges open at the start began before the
+                    # profile, which never saw them: the first gap goes to
+                    # the first range entered after it
+                    j = bisect.bisect_left(bounds, t)
+                    label = labels[j] if j < len(labels) else label
                 idle_by_range[label] = idle_by_range.get(label, 0.0) + (a - t) / 1e9
             t = max(t, b)
         cards.append({"device": dev, "busy_s": busy_ns / 1e9,
@@ -113,10 +121,28 @@ def op_seconds(profile: Dict, match=lambda name: True) -> Tuple[int, float]:
 
 
 def outside_profile(rec: Dict, timed: bool) -> List[Dict]:
-    """The window's frame-refs that ran with the profiler off and not just
-    after it, with the port's ``Timing`` (``timed``) or without it."""
+    """The window's frame-refs that ran before the profiler started (its
+    first start initialises CUPTI, which slows every launch from then on),
+    with the port's ``Timing`` (``timed``) or without it."""
     return [f for f in rec["window"] if not f["profiled"]
             and not f["after_profile"] and f["timed"] == timed]
+
+
+def with_spans(rec: Dict) -> List[Dict]:
+    """The frame-refs of ``outside_profile(rec, False)`` that carry the
+    port's spans and counters (``spans``: what the recorder drained at
+    their completion)."""
+    return [f for f in outside_profile(rec, False) if "spans" in f]
+
+
+def put_ms(rec: Dict):
+    """The mean host ms of the port's ``pipeline.put`` spans (checking,
+    pinning and copying a frame to each card) of a frame-ref that staged
+    a frame (reference index 0), over ``with_spans``."""
+    put = [f["spans"]["spans"].get("pipeline.put") for f in with_spans(rec)
+           if f["key"][2] == 0]
+    put = [p["host_s"] for p in put if p]
+    return 1e3 * sum(put) / len(put) if put else None
 
 
 def outside_dispatch_ms(rec: Dict):
@@ -132,9 +158,10 @@ def idle_shares(rec: Dict):
     """Per card, the share in % of a frame-ref's wall time in which the
     card ran nothing: its busy seconds per profiled frame-ref (the
     profiler's kernels, copies and sets) over the mean wall seconds of the
-    same run's frame-refs outside the profile and without ``Timing``.  So
-    the profiler's own slowing of the frame-refs it records, and
-    ``Timing``'s synchronisation after every dispatch, stay out of it."""
+    same run's frame-refs before the profile and without ``Timing``.  So
+    the profiler's own slowing of the frame-refs it records and of every
+    launch after its start, and ``Timing``'s synchronisation after every
+    dispatch, stay out of it."""
     p = rec["profile"]
     w = outside_profile(rec, False)
     if p is None or not p["cards"] or not w:
