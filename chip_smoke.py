@@ -36,10 +36,21 @@ Phases, in order (any failure exits non-zero before the result line):
    per mode replayed once: 10 motion-plane launches, outputs equal to the
    eager oracle's and to the eager pair with the plain motion planes, and
    the graphs' nodes per frame-ref (a ``mvplanes`` JSON line);
+5c. the CU fold kernel (``csrc/cufold.cu``, ``check_cufold``): against
+   its plain version ``_fold_cu_plain`` on the card, bit for bit, at
+   1920x1080 and 3840x2160 (also padded to 512 CTUs and as the split's
+   last shard), both modes, 2CP and 3CP with the equations and SATD only,
+   on K2's outputs for ``mebench/frames.py`` content under zero, random,
+   zoom and rotation CPMVs, and on random K2 outputs at their extremes;
+   its time (bare launches) beside its bytes bound and the plain
+   version's; a captured 1080p pair per mode replayed once: 11 CU fold
+   launches, outputs equal to the eager oracle's and to the eager pair
+   with the plain fold, and the graphs' nodes per frame-ref (a ``cufold``
+   JSON line);
 6. the main path: ``cli.main`` at 1920x1080, -f 2, -q 32 on synthetic
    affine-motion content, with the launch counts zeroed just before and
    read just after (K1 must launch 60 times, K2 66, the motion-plane
-   kernel 60), and the decision logs
+   kernel 60, the CU fold 66), and the decision logs
    checked for row count, shape and range.  Every pair on the card is one
    CUDA graph (``runtime/graphs.py``): the first frame-ref warms up and
    captures, the other two replay; the run's peak device memory;
@@ -48,10 +59,11 @@ Phases, in order (any failure exits non-zero before the result line):
    (one warm-up, three replays) and the 2CP and 3CP stages likewise, every
    output bit-identical to the eager loop's (``eager_pair_fn``,
    ``eager_stage_fn``) on the same set, also after the later replays, and
-   each call launching 10 K1, 11 K2 and 10 motion-plane kernels; (b) the
-   1080p -f 2 pipeline with each pair run eagerly: its 40 logs
-   byte-identical to phase 6's, K1/K2/motion planes 60/66/60; (c) a
-   ``graph`` JSON line: seconds per frame-ref of the eager run
+   each call launching 10 K1, 11 K2, 10 motion-plane and 11 CU fold
+   kernels; (b) the 1080p -f 2 pipeline with each pair run eagerly: its 40
+   logs byte-identical to phase 6's, K1/K2/motion planes/CU fold
+   60/66/60/66; (c) a ``graph`` JSON line: seconds per frame-ref of the
+   eager run
    and of phase 6 (its first, capturing frame-ref apart), capture seconds
    per pair and stage, K1/K2 launches, device memory of both runs, and
    with ``--profile`` the device busy share of a replayed and of an eager
@@ -118,9 +130,9 @@ Phases, in order (any failure exits non-zero before the result line):
    [cuda:0] * N)``, N = 2 and 4 (135 CTUs pad to 136, so a padding CTU
    runs), at 1920x1080 -f 2 on phase 6's CSVs, logs written through
    ``reporting``: all 40 byte-identical to phase 6's, K1 launched N x 60,
-   K2 N x 66 and the motion-plane kernel N x 60 times; on a machine with
-   N cards also ``cli.main --NumChips N`` over N distinct cards; (b) two
-   processes of ``python -m
+   K2 N x 66, the motion-plane kernel N x 60 and the CU fold N x 66
+   times; on a machine with N cards also ``cli.main --NumChips N`` over N
+   distinct cards; (b) two processes of ``python -m
    vvc_affine_tpu_torch.cli --Coordinator 127.0.0.1:<free port>
    --NumProcesses 2 --ProcessId k`` on card 0 (and, with two cards, on
    card k) and phase 6's CSVs: both exit 0 within a timeout (else both are
@@ -155,9 +167,10 @@ Phases, in order (any failure exits non-zero before the result line):
    the card bit-identical to the CPU golden of its child; (e)
    ``gop_golden`` at 3840x2160 -f 2 (510 CTUs, 3 frame-refs: the first
    captures the graphs, two replay): the plane and the gather CLI's 40
-   logs byte-identical, K1/K2/motion planes launched 60/66/60 times in the
-   plane child and none in the gather child, each child's first
-   frame-ref, replayed frame-refs and peak memory on ``[tools]`` lines;
+   logs byte-identical, K1/K2/motion planes/CU fold launched 60/66/60/66
+   times in the plane child and none in the gather child, each child's
+   first frame-ref, replayed frame-refs and peak memory on ``[tools]``
+   lines;
    (f) ``scaling_bench``
    at 1080p over 1, 2 and 4 shards (card 0 repeated where there are fewer
    cards): the same result digest for every count (``[scaling]`` lines);
@@ -213,9 +226,10 @@ REPLACES = {"warp": "vvc_affine_tpu/ops/warp.py:252",
             **{f"probe_{p}": f"tools/mosaic_probe.py:{line}" for p, line in (
                 ("k_a", 59), ("k_b", 63), ("k_c", 69), ("k_d_rows", 78),
                 ("k_d_lanes", 82), ("k_e", 74))}}
-# K1, K2 and motion-plane launches per 2CP->3CP pair, FULL + HALF, per
-# frame-ref
-PAIR_LAUNCHES = {"warp": 20, "blockreduce": 22, "mvplanes": 20}
+# K1, K2, motion-plane and CU fold launches per 2CP->3CP pair, FULL + HALF,
+# per frame-ref
+PAIR_LAUNCHES = {"warp": 20, "blockreduce": 22, "mvplanes": 20,
+                 "cufold": 22}
 # phase 5b's kinds of CPMVs
 MV_KINDS = ("random", "mv_max", "spread", "zero", "mixed", "zoom",
             "rotation")
@@ -694,6 +708,203 @@ def check_mvplanes():
             "shape": f"1080p full: {full[0]['planes']}, mean of 2CP and 3CP"}
 
 
+def _fold_k2(spec, t, ref_flat, orig_pl, ref_pl, kind, rng):
+    """K2's outputs (satd_b, moms_b) that the engine folds per CU, on the
+    card: of ``_evaluate_zero`` (kind "zero"), of ``_evaluate`` under
+    ``_mv_cpmvs`` of the kind, or random at their extremes ("extremes":
+    SATD over the int32 range and at both ends, moments over and at
+    +-2^29)."""
+    import torch
+
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+
+    dev = t.within.device
+    if kind == "extremes":
+        shape = (t.n_ctus, t.n_bins, 32, 32)
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(rng.integers(2**31)))
+        satd = torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+        moms = torch.randint(-2**29, 2**29 + 1, shape[:2] + (5,) + shape[2:],
+                             generator=g, device=dev, dtype=torch.int32)
+        for x, lo, hi in ((satd, -2**31, 2**31 - 1), (moms, -2**29, 2**29)):
+            pick = torch.rand(x.shape, generator=g, device=dev)
+            x[pick < 0.2] = hi
+            x[pick > 0.8] = lo
+        return satd, moms
+    seen = []
+    saved = ap._fold_cu
+    ap._fold_cu = lambda *a: seen.append(a[2:4]) or (None, None, None)
+    try:
+        if kind == "zero":
+            ap._evaluate_zero(spec, t, ref_pl, orig_pl, True)
+        else:
+            ap._evaluate(spec, t, ref_flat, orig_pl,
+                         _mv_cpmvs(t, kind, rng), True)
+    finally:
+        ap._fold_cu = saved
+    return seen[0]
+
+
+def _fold_cost(t, n_cp, refine):
+    """Bytes and operations the CU fold needs for one call: the SATD (and
+    five moments) of every slot of an in-frame CU in, once; the lane table
+    and the block table's rows in, once; the per-CU outputs out; about 25
+    multiply-adds (2 operations each) per slot with the moments, 1
+    without."""
+    slots = int((t.within * (t.cu_w // 4 * t.cu_h // 4)).sum())
+    pn = 2 * n_cp
+    per_cu = 8 * (1 + (pn * pn + pn) * refine)
+    nbytes = (slots * 4 * (6 if refine else 1)
+              + t.n_ctus * t.n_cus * per_cu + t.fold_lanes.numel() * 4
+              + t.mv_slots[0].numel() * 4 * (3 if refine else 1))
+    return nbytes, slots * (50 if refine else 2)
+
+
+def check_cufold():
+    """Phase 5c: the CU fold kernel (``csrc/cufold.cu``).  (a) At 1920x1080
+    and 3840x2160, FULL and HALF, on ``mebench/frames.py`` content: for K2's
+    outputs under zero, random, zoom and rotation CPMVs and random K2
+    outputs at their extremes, ``affine_plane._fold_cu`` (one kernel
+    launch) equals its plain version ``_fold_cu_plain`` run on the card,
+    bit for bit, for 2CP and 3CP with the equations and for SATD only; and
+    on the 4K tables padded to 512 CTUs, whole and as the last shard's
+    ``ctu_rows``.  (b) Per (size, mode, n_cp / SATD only) the kernel's time
+    (bare launches, CUDA events) beside its bytes bound and the plain
+    version's time.  (c) Per mode at 1080p, a new captured pair (``Graphed``
+    around ``eager_pair_fn``) and its replay on phase 6b's first input set:
+    11 CU fold launches per replay, outputs bit-identical to the eager
+    oracle's and to the eager pair with the plain fold; the captured
+    graphs' nodes per pair and per frame-ref.  Prints a ``cufold`` JSON
+    line and returns the kernel's row of the ``kernels`` line (its
+    ``launches`` filled in by phase 6)."""
+    import numpy as np
+    import torch
+
+    from mebench import frames as mframes
+    from vvc_affine_tpu_torch import kernels
+    from vvc_affine_tpu_torch.models import affine_plane as ap
+    from vvc_affine_tpu_torch.ops import cufold
+    from vvc_affine_tpu_torch.runtime import graphs
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(517)
+    cases = ((2, True), (3, True), (2, False))
+    timed = []
+    for w, h in ((FW, FH), (3840, 2160)):
+        orig, recon = mframes.affine_gop(w, h, 1, mframes.Draws(517 + w, dev))
+        ref_flat = recon[0].reshape(-1).to(torch.int32)
+        orig_flat = orig[0].reshape(-1).to(torch.int32)
+        del orig, recon
+        for mode in ("full", "half"):
+            s2 = ap.PlaneSpec(mode, 2, w, h)
+            t = ap.build_tables(s2, dev)
+            layouts = {"": (t, t, None)}
+            if w == 3840:
+                tp = ap.build_tables(s2, dev, 512)
+                layouts.update({
+                    " padded": (tp, tp, None),
+                    " last shard": (tp, ap.ctu_rows(tp, 384, 512),
+                                    slice(384, 512))})
+            for name, (base, tt, rows) in layouts.items():
+                orig_pl, ref_pl = ap.prep_inputs(s2, base, ref_flat,
+                                                 orig_flat)
+                kinds = ("zero", "random", "zoom", "rotation", "extremes")
+                for kind in kinds if not name else ("zoom", "extremes"):
+                    satd_b, moms_b = _fold_k2(s2, base, ref_flat, orig_pl,
+                                              ref_pl, kind, rng)
+                    if rows is not None:
+                        satd_b, moms_b = satd_b[rows], moms_b[rows]
+                    for n_cp, refine in cases:
+                        spec = ap.PlaneSpec(mode, n_cp, w, h)
+                        mb = moms_b if refine else None
+                        kernels.reset_launches()
+                        got = ap._fold_cu(spec, tt, satd_b, mb, refine)
+                        torch.cuda.synchronize()
+                        _require(kernels.launches["cufold"] == 1,
+                                 f"cufold launched {kernels.launches}")
+                        want = ap._fold_cu_plain(spec, tt, satd_b, mb,
+                                                 refine)
+                        _require(all(
+                            (g is None and v is None) or (
+                                g.dtype == v.dtype and torch.equal(g, v))
+                            for g, v in zip(got, want, strict=True)),
+                            f"cufold {w}x{h} {mode} {n_cp}CP refine "
+                            f"{refine}{name} {kind}: kernel differs from "
+                            f"the plain version")
+                    del satd_b, moms_b, got, want
+                del orig_pl, ref_pl
+            # times on the zoom field's K2 outputs
+            orig_pl, ref_pl = ap.prep_inputs(s2, t, ref_flat, orig_flat)
+            satd_b, moms_b = _fold_k2(s2, t, ref_flat, orig_pl, ref_pl,
+                                      "zoom", rng)
+            for n_cp, refine in cases:
+                spec = ap.PlaneSpec(mode, n_cp, w, h)
+                mb = moms_b if refine else None
+                out, run = cufold.bind_fold_cu(satd_b, mb, t.within,
+                                               t.fold_lanes, t.mv_slots,
+                                               n_cp, refine)
+                bound_ms, bound_by = _bound(*_fold_cost(t, n_cp, refine))
+                timed.append({
+                    "frame": f"{w}x{h}", "mode": mode,
+                    "n_cp": n_cp if refine else None, "refine": refine,
+                    "ctus": t.n_ctus, "ms": _median_ms(run, 5, 20),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "plain_ms": _median_ms(lambda: ap._fold_cu_plain(
+                        spec, t, satd_b, mb, refine), 3, 2)})
+                del out, run
+            print(f"[cufold] {w}x{h} {mode}: kernel == plain on 5 kinds x "
+                  f"2CP/3CP/SATD only"
+                  f"{', padded and last shard' if w == 3840 else ''}",
+                  flush=True)
+            del t, layouts, orig_pl, ref_pl, satd_b, moms_b
+            if w == 3840:
+                del tp
+        torch.cuda.empty_cache()
+    args0 = _graph_inputs()[0]
+    nodes, one = {}, _path_launches(
+        {k: v // 2 for k, v in PAIR_LAUNCHES.items()})
+    for mode in ("full", "half"):
+        s2, s3 = (ap.PlaneSpec(mode, n, FW, FH) for n in (2, 3))
+        eager = ap.eager_pair_fn(s2, s3, dev)
+        pair = graphs.Graphed(eager, dev, eager.check)
+        args = args0[mode]
+        pair(*args)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = pair(*args)
+        torch.cuda.synchronize()
+        _require(kernels.launches == one, f"{mode} pair replay launched "
+                                          f"{kernels.launches}, want {one}")
+        _same_outputs(f"{mode} pair (cufold kernel)", got, eager(*args))
+        saved = ap._fold_cu
+        ap._fold_cu = ap._fold_cu_plain
+        try:
+            plain = eager(*args)
+        finally:
+            ap._fold_cu = saved
+        _same_outputs(f"{mode} pair with the plain fold", got, plain)
+        nodes[mode] = graphs.count_nodes(pair.graph)
+        del pair, got, plain
+    line = {"kernel": "cufold", "times": timed,
+            "nodes_per_pair": nodes,
+            "nodes_per_frame_ref": sum(n["total"] for n in nodes.values()),
+            "launches_per_pair_replay": one["cufold"],
+            **kernels.attributes("cufold")}
+    print(json.dumps({"cufold": line}), flush=True)
+    full = [r for r in timed if r["frame"] == f"{FW}x{FH}"
+            and r["mode"] == "full" and r["refine"]]
+    return {"name": "cufold", "route": "cuda",
+            "source": "vvc_affine_tpu_torch/csrc/cufold.cu",
+            "replaces": None, "launches": None, "max_abs_err": 0,
+            **{k: sum(r[k] for r in full) / len(full)
+               for k in ("ms", "bound_ms", "plain_ms")},
+            "bound_by": full[0]["bound_by"], "library_ms": None,
+            **kernels.attributes("cufold"),
+            "shape": f"1080p full: {full[0]['ctus']} CTUs, mean of 2CP and "
+                     f"3CP with the equations"}
+
+
 def _log_bytes(prefix):
     """name (without the prefix) -> bytes of every decision log"""
     from vvc_affine_tpu_torch.runtime import reporting
@@ -745,7 +956,7 @@ def run_main_path(n_ctu, tmp):
     _require(launches == _path_launches(
         {k: 3 * v for k, v in PAIR_LAUNCHES.items()}),
              f"main path launches {launches}, want warp 60, "
-             f"blockreduce 66 and mvplanes 60")
+             f"blockreduce 66, mvplanes 60 and cufold 66")
     n_rows = 0
     for pred in range(4):
         for path in reporting.log_paths(prefix, pred):
@@ -1797,7 +2008,8 @@ def _pipeline_run(csvs, devices=None, eager=False, engine="plane",
 def run_eager_path(csvs, plane_logs):
     """Phase 6b(b): the 1080p -f 2 pipeline with every pair run eagerly, in
     this process after phase 6: its 40 logs byte-identical to phase 6's
-    (produced by the graphs), 60 K1, 66 K2 and 60 motion-plane launches.
+    (produced by the graphs), 60 K1, 66 K2, 60 motion-plane and 66 CU fold
+    launches.
     Returns its seconds per frame-ref and memory."""
     logs, launches, frame_s, memory = _pipeline_run(csvs, eager=True)
     want = _path_launches({k: 3 * v for k, v in PAIR_LAUNCHES.items()})
@@ -2141,10 +2353,10 @@ def run_tools(csvs, plane_logs, card):
                                 timeout=300)
             res = _json_line(out, "profile_stage")
             rows = {r["piece"]: r for r in res["pieces"]}
-            _require(len(rows) == 10 and all(
+            _require(len(rows) == 11 and all(
                 r["event_ms"] > 0 and r["host_ms"] > 0 for r in rows.values()),
                 f"profile_stage {flags}: pieces {sorted(rows)}")
-            for piece in ("K1 warp", "K2 refine", "K2 satd only"):
+            for piece in ("K1 warp", "K2 refine", "K2 satd only", "fold_cu"):
                 _require(rows[piece]["device_launches"] >= 1,
                          f"profile_stage: {piece} launched nothing")
             for r in res["pieces"]:
@@ -2434,16 +2646,18 @@ def main(argv=None) -> int:
     br_stats = check_blockreduce(tables, orig_pl, rng)
     check_card_vs_cpu()
     mv_row = check_mvplanes()
+    fold_row = check_cufold()
     with tempfile.TemporaryDirectory() as work:
         launches, csvs, plane_logs, main_s, main_memory = run_main_path(
             tables["full"].n_ctus, work)
         mv_row["launches"] = launches["mvplanes"]
+        fold_row["launches"] = launches["cufold"]
         capture_s = check_graphs()
         eager_s, eager_memory = run_eager_path(csvs, plane_logs)
         path = capture_path_launches()
         rows, bound = time_kernels(tables, warp_stats, br_stats, launches,
                                    path)
-        rows.append(mv_row)
+        rows += [mv_row, fold_row]
         if args.ab:
             ab_compare(args.ab, path, tables, args.ab_k2_masks)
         del path

@@ -143,14 +143,17 @@ def test_build_tables_match_jax(mode, fw, fh):
     assert tap.tables_from_numpy(jt._asdict(), "cpu")._asdict().keys() \
         == tt._asdict().keys()
     shared = [f for f in tap.PlaneTables._fields if f in jt._fields]
-    # all but the port's own cls_t, repl (K2's replication flags) and
-    # mv_slots (the motion-plane kernel's block table)
-    assert len(shared) == len(tap.PlaneTables._fields) - 3
+    # all but the port's own cls_t, repl (K2's replication flags),
+    # mv_slots (the motion-plane kernel's block table) and fold_lanes (the
+    # CU fold's lane table)
+    assert len(shared) == len(tap.PlaneTables._fields) - 4
     np.testing.assert_array_equal(
         tt.repl.numpy(),
         tbr.replication_flags(torch.from_numpy(jt.border_packed)).numpy())
     np.testing.assert_array_equal(tt.mv_slots.numpy(),
                                   tplanes.bin_slot_table(mode))
+    np.testing.assert_array_equal(tt.fold_lanes.numpy(),
+                                  tplanes.fold_lane_table(mode))
     for f in shared:
         a, b = getattr(tt, f), getattr(jt, f)
         if isinstance(a, torch.Tensor):

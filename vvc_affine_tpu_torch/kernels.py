@@ -47,6 +47,7 @@ _KERNELS = {
     "warp": ("warp.cu", "vvc_warp", "ppppppppp" + "iiii"),
     "blockreduce": ("blockreduce.cu", "vvc_blockreduce", "ppppp" + "iii"),
     "mvplanes": ("mvplanes.cu", "vvc_mvplanes", "pppppp" + "iiiiii"),
+    "cufold": ("cufold.cu", "vvc_cufold", "pppppppp" + "iiiiii"),
     **{f"probe_{p}": ("window_probe.cu", f"vvc_probe_{p}", "ppi")
        for p in ("k_a", "k_b", "k_c", "k_d_rows", "k_d_lanes", "k_e")},
     # an empty kernel of the probes' shape: the floor of a launch
@@ -179,10 +180,10 @@ def _function(name: str):
 
 def attributes(name: str) -> Dict[str, int]:
     """Kernel ``name`` as loaded (``cudaFuncGetAttributes``, through its
-    source's ``<entry>_attributes`` function, which K1, K2 and the
-    motion-plane kernel have): registers per thread, local memory per
-    thread in bytes (the stack that spills use; 0 means none) and static
-    shared memory per block."""
+    source's ``<entry>_attributes`` function, which K1, K2, the
+    motion-plane kernel and the CU fold have): registers per thread, local
+    memory per thread in bytes (the stack that spills use; 0 means none)
+    and static shared memory per block."""
     src, sym, _ = _KERNELS[name]
     fn = getattr(_library(src), sym + "_attributes")
     fn.restype = ctypes.c_int

@@ -10,18 +10,21 @@ affine.cl:11-958/960-1950):
   half-aligned classes share planes ("bins", ``planes.bin_layout``).
   Per-block motion (integer displacement dy/dx) and filter phases (fx/fy)
   are DATA planes.
-* Each evaluate runs three kernels: the motion planes (``_mv_planes``)
+* Each evaluate runs four kernels: the motion planes (``_mv_planes``)
   turn the CUs' CPMVs into those per-block planes, the warp K1
-  (``ops.warp.warp``) predicts every bin plane, and the block reduction K2
+  (``ops.warp.warp``) predicts every bin plane, the block reduction K2
   (``ops.blockreduce.reduce_blocks``) turns each plane into per-block SATD
-  and normal-equation moments.  On CUDA tensors all three are hand-written
-  kernels (the motion planes: ``ops.mvplanes``, one launch reading the
-  static per-block table ``PlaneTables.mv_slots``); on CPU tensors their
-  plain PyTorch versions run (the motion planes' is a loop over the CU
-  classes, ``_mv_planes_plain``).  Because the warp computes each window's
-  address from (dy, dx) with clamping, it is exact for any displacement:
-  none of the JAX engine's TPU dispatch machinery (R-ladder, rebased
-  windows, escape fix-up) exists here.
+  and normal-equation moments, and the CU fold (``_fold_cu``) sums those
+  into each CU's SATD and normal equations.  On CUDA tensors all four are
+  hand-written kernels (the motion planes: ``ops.mvplanes``, one launch
+  reading the static per-block table ``PlaneTables.mv_slots``; the CU
+  fold: ``ops.cufold``, one launch reading that table and the lane table
+  ``PlaneTables.fold_lanes``); on CPU tensors their plain PyTorch versions
+  run (the motion planes' and the CU fold's are loops over the CU
+  classes, ``_mv_planes_plain`` and ``_fold_cu_plain``).  Because the warp
+  computes each window's address from (dy, dx) with clamping, it is exact
+  for any displacement: none of the JAX engine's TPU dispatch machinery
+  (R-ladder, rebased windows, escape fix-up) exists here.
 * Per-CU quantities (SATD sums, equation systems, CPMV updates) move
   between CU tensors (canonical class order — the reference's return-array
   contract) and slot planes through static slices and index tables built
@@ -50,6 +53,7 @@ from vvc_affine_tpu_torch import planes as P
 from vvc_affine_tpu_torch import resolve_device
 from vvc_affine_tpu_torch.ops import blockreduce as blockreduce_ops
 from vvc_affine_tpu_torch.ops import cost as cost_ops
+from vvc_affine_tpu_torch.ops import cufold as cufold_ops
 from vvc_affine_tpu_torch.ops import mv as mv_ops
 from vvc_affine_tpu_torch.ops import mvplanes as mvplanes_ops
 from vvc_affine_tpu_torch.ops import solver as solver_ops
@@ -103,6 +107,7 @@ class PlaneTables(NamedTuple):
     border_packed: torch.Tensor        # int32 [n_bins, 128, 128] bit-packed
     repl: torch.Tensor                 # uint8 [n_bins, NB, NB] K2 block flags
     mv_slots: torch.Tensor             # int32 [6, n_bins, NB, NB] block table
+    fold_lanes: torch.Tensor           # int32 [7, n_lanes] CU fold's lanes
     slab_active: torch.Tensor          # int32 [nCtus, n_bins, 16]
     strides: Tuple[int, ...]           # canonical per-class CU offsets
     cls: Tuple[P.ClassPlane, ...]
@@ -118,9 +123,9 @@ class PlaneTables(NamedTuple):
 
 
 # PlaneTables fields that are tensors (built from numpy arrays)
-_TENSOR_FIELDS = ("border_packed", "repl", "mv_slots", "slab_active",
-                  "abs_x", "abs_y", "within", "cu_w", "cu_h", "ctu_x",
-                  "ctu_y")
+_TENSOR_FIELDS = ("border_packed", "repl", "mv_slots", "fold_lanes",
+                  "slab_active", "abs_x", "abs_y", "within", "cu_w", "cu_h",
+                  "ctu_x", "ctu_y")
 # PlaneTables fields that lead with the CTU axis (``ctu_rows``)
 _CTU_FIELDS = ("slab_active", "abs_x", "abs_y", "within", "ctu_x", "ctu_y")
 
@@ -201,6 +206,7 @@ def _tables_numpy(spec: PlaneSpec, n_ctu_pad: int = 0) -> dict:
         n_bins=len(bins), bins=bins, bin_of=bin_of,
         border_packed=border, repl=host_replication_flags(border),
         mv_slots=P.bin_slot_table(spec.mode),
+        fold_lanes=P.fold_lane_table(spec.mode),
         slab_active=slab_activity(spec.mode, within),
         strides=lay.return_strides, cls=cls,
         abs_x=abs_x.astype(np.int32), abs_y=abs_y.astype(np.int32),
@@ -267,10 +273,11 @@ def tables_from_numpy(d: dict, device) -> PlaneTables:
     engine's ``PlaneTables._asdict()`` or ``_tables_numpy``); fields the
     port does not use are ignored.  The class geometry (``cls``) is the
     port's own for the mode that ``n_cls`` implies.  K2's replication flags
-    (``repl``) and the motion-plane kernel's block table (``mv_slots``) are
-    host tables like the rest: taken from ``d``, or for the JAX tables,
-    which have neither, derived on the host (``host_replication_flags`` of
-    their masks; ``planes.bin_slot_table`` of the mode).
+    (``repl``), the motion-plane kernel's block table (``mv_slots``) and the
+    CU fold's lanes (``fold_lanes``) are host tables like the rest: taken
+    from ``d``, or for the JAX tables, which have none of them, derived on
+    the host (``host_replication_flags`` of their masks;
+    ``planes.bin_slot_table`` and ``planes.fold_lane_table`` of the mode).
     """
     mode = {12: "full", 24: "half"}[int(d["n_cls"])]
     cls = P.plane_layout(mode)
@@ -278,6 +285,8 @@ def tables_from_numpy(d: dict, device) -> PlaneTables:
         d = {**d, "repl": host_replication_flags(d["border_packed"])}
     if "mv_slots" not in d:
         d = {**d, "mv_slots": P.bin_slot_table(mode)}
+    if "fold_lanes" not in d:
+        d = {**d, "fold_lanes": P.fold_lane_table(mode)}
     kw = {k: d[k] for k in PlaneTables._fields
           if k not in _TENSOR_FIELDS + ("cls", "cls_t", "bin_of")}
     kw.update({k: torch.as_tensor(np.asarray(d[k]), device=device)
@@ -376,14 +385,59 @@ def _mv_planes_plain(spec: PlaneSpec, t: PlaneTables, cpmvs):
     return tuple(torch.stack(a, dim=1) for a in acc)
 
 
-def _assemble_equations(spec: PlaneSpec, t: PlaneTables, moments):
-    """Per-CU normal equations from per-bin block moments.
+def _reduce_pred(spec: PlaneSpec, t: PlaneTables, pred, orig_pl,
+                 refine: bool):
+    """SATD / gradient / normal-equation reductions from bin pred planes.
 
-    moments: per bin, int64 [nCtu, 5, NB, NB] block sums of (gx*gx, gx*gy,
-    gy*gy, gx*err, gy*err) — the equation model of the JAX package's
-    ops/equations.py (affine.cl:680-694).  Returns M int64
-    [nCtu, nCU, P, P] and rhs int64 [nCtu, nCU, P], zero off-frame.
+    pred: int16 [nCtu, nBins | 1, 128, 128] (a length-1 bin axis
+    broadcasts, the zero-MV case).  Returns (satd int64 [nCtu, nCU], M, rhs)
+    with M/rhs None unless ``refine``: K2's per-block sums
+    (``ops.blockreduce.reduce_blocks``) folded per CU (``_fold_cu``).
     """
+    satd_b, moms_b = blockreduce_ops.reduce_blocks(
+        pred, orig_pl, t.border_packed, refine, t.repl)
+    return _fold_cu(spec, t, satd_b, moms_b, refine)
+
+
+def _fold_cu(spec: PlaneSpec, t: PlaneTables, satd_b, moms_b, refine: bool):
+    """Per-CU SATD and normal equations from K2's per-block sums.
+
+    satd_b int32 [nCtu, nBins, NB, NB]; moms_b int32 [nCtu, nBins, 5, NB,
+    NB] block sums of (gx*gx, gx*gy, gy*gy, gx*err, gy*err) — the equation
+    model of the JAX package's ops/equations.py (affine.cl:680-694) — or
+    None unless ``refine``.  Returns satd int64 [nCtu, nCU] and, with
+    ``refine``, M int64 [nCtu, nCU, P, P] and rhs int64 [nCtu, nCU, P]
+    (else None, None), canonical class order, zero off-frame.  CUDA inputs
+    launch the hand-written kernel once (``ops.cufold``, on
+    ``t.fold_lanes`` and ``t.mv_slots``); CPU inputs run the plain version,
+    ``_fold_cu_plain``.
+    """
+    if satd_b.device.type == "cpu":
+        return _fold_cu_plain(spec, t, satd_b, moms_b, refine)
+    return cufold_ops.fold_cu(satd_b, moms_b, t.within, t.fold_lanes,
+                              t.mv_slots, spec.n_cp, refine)
+
+
+def _fold_cu_plain(spec: PlaneSpec, t: PlaneTables, satd_b, moms_b,
+                   refine: bool):
+    """The plain version of ``_fold_cu`` (the JAX engine's): per class, the
+    SATD blocks masked by ``slot_valid`` and summed over each CU's slots;
+    the moments widened to int64 per bin; per class, every unique M and rhs
+    term as int64 slot planes, summed the same way; the symmetric entries
+    selected, and everything masked by ``within``."""
+    satd_cols = []
+    for ci, cp_tab in enumerate(t.cls):
+        bi = int(t.bin_of[ci])
+        satd_cols.append(P.reduce_slots_to_cu(
+            torch.where(t.cls_t[ci].slot_valid,
+                        satd_b[:, bi].to(torch.int64), 0), cp_tab))
+    within = t.within
+    satd = torch.where(within, torch.cat(satd_cols, dim=1), 0)
+    if not refine:
+        return satd, None, None
+    # per-block moment sums are int32-exact; widen to int64 per bin here,
+    # where the JAX engine widens
+    moments = [moms_b[:, bi].to(torch.int64) for bi in range(t.n_bins)]
     Pn = 2 * spec.n_cp
     n_terms = len(_term_order(spec.n_cp))
     M_cols, rhs_cols = [], []
@@ -401,35 +455,9 @@ def _assemble_equations(spec: PlaneSpec, t: PlaneTables, moments):
         M_cols.append(red.index_select(-1, t.cls_t[ci].sym[spec.n_cp])
                       .unflatten(-1, (Pn, Pn)))
         rhs_cols.append(red[..., n_terms:] << 3)
-    within = t.within
     M = torch.where(within[..., None, None], torch.cat(M_cols, dim=1), 0)
     rhs = torch.where(within[..., None], torch.cat(rhs_cols, dim=1), 0)
-    return M, rhs
-
-
-def _reduce_pred(spec: PlaneSpec, t: PlaneTables, pred, orig_pl,
-                 refine: bool):
-    """SATD / gradient / normal-equation reductions from bin pred planes.
-
-    pred: int16 [nCtu, nBins | 1, 128, 128] (a length-1 bin axis
-    broadcasts, the zero-MV case).  Returns (satd int64 [nCtu, nCU], M, rhs)
-    with M/rhs None unless ``refine``.
-    """
-    satd_b, moms_b = blockreduce_ops.reduce_blocks(
-        pred, orig_pl, t.border_packed, refine, t.repl)
-    satd_cols = []
-    for ci, cp_tab in enumerate(t.cls):
-        bi = int(t.bin_of[ci])
-        satd_cols.append(P.reduce_slots_to_cu(
-            torch.where(t.cls_t[ci].slot_valid,
-                        satd_b[:, bi].to(torch.int64), 0), cp_tab))
-    satd = torch.where(t.within, torch.cat(satd_cols, dim=1), 0)
-    if not refine:
-        return satd, None, None
-    # per-block moment sums are int32-exact; widen to int64 per bin here,
-    # where the JAX engine widens
-    moments = [moms_b[:, bi].to(torch.int64) for bi in range(t.n_bins)]
-    return (satd, *_assemble_equations(spec, t, moments))
+    return satd, M, rhs
 
 
 def _evaluate(spec: PlaneSpec, t: PlaneTables, ref_flat, orig_pl, cpmvs,

@@ -250,6 +250,46 @@ def bin_slot_table(mode: str) -> np.ndarray:
     return tab
 
 
+# rows of ``fold_lane_table``
+LANE_ROWS = ("cu", "cls", "bin", "by0", "bx", "sbh", "sbw")
+
+
+def fold_lane_table(mode: str) -> np.ndarray:
+    """The CU fold's lanes: int32 [len(LANE_ROWS), n_lanes], one lane per
+    block column of every canonical CU, for one CTU.
+
+    Rows: the CU's canonical index within the CTU, its class and bin, the
+    first block row ``by0`` of its slot rectangle, the lane's block column
+    ``bx``, and the rectangle's height ``sbh`` and width ``sbw`` in blocks.
+    A CU's ``sbw`` lanes are consecutive, in column order, and start at a
+    multiple of ``sbw`` (a power of two up to 32), so that no CU straddles
+    a warp of 32 lanes; ``n_lanes`` is a multiple of 32.  Lanes run bin by
+    bin, the classes of a bin by falling width, each class's CUs sub-grid
+    by sub-grid, which aligns every CU in both layouts (anything else
+    raises ValueError).  The CU fold kernel (``csrc/cufold.cu``) runs one
+    thread per (CTU, lane); the slot centres and classes it reads per block
+    are ``bin_slot_table``'s.
+    """
+    lay = G.layout(mode)
+    bins, _ = bin_layout(mode)
+    cls = plane_layout(mode)
+    lanes: List[List[int]] = []
+    for bi, ids in enumerate(bins):
+        for ci in sorted(ids, key=lambda c: (-cls[c].width, c)):
+            for g in cls[ci].subgrids:
+                for i, cid in enumerate(g.cu_ids):
+                    y0 = g.by0 + (i // g.nx) * g.bystep
+                    x0 = g.bx0 + (i % g.nx) * g.bxstep
+                    if len(lanes) % g.sbw:
+                        raise ValueError(f"{mode}: class {ci} CU {cid} "
+                                         f"is not aligned to its width")
+                    lanes += [[lay.return_strides[ci] + cid, ci, bi, y0,
+                               x0 + k, g.sbh, g.sbw] for k in range(g.sbw)]
+    if len(lanes) % 32:
+        raise ValueError(f"{mode}: {len(lanes)} lanes, not whole warps")
+    return np.array(lanes, np.int32).T.copy()
+
+
 @functools.lru_cache(maxsize=None)
 def bin_layout(mode: str):
     """Pack classes with disjoint slot coverage into shared evaluation bins.

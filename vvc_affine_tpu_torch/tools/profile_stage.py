@@ -9,7 +9,9 @@ everywhere and lambda 78.949063, at 1920x1080 FULL unless told otherwise:
 Each piece of ``models/affine_plane.py`` — ``prep_inputs``, ``_mv_planes``
 (on a card one launch of ``csrc/mvplanes.cu``), K1 (``ops.warp.warp``), K2
 (``ops.blockreduce.reduce_blocks``) with and without ``refine``,
-``_assemble_equations``, the solver (``ops.solver.solve_affine``),
+``_fold_cu`` (on a card one launch of ``csrc/cufold.cu``) and its plain
+twin ``_fold_cu_plain`` (the SATD folds and the normal equations, run on
+the device as they are), the solver (``ops.solver.solve_affine``),
 ``refine_cpmvs``, ``_evaluate`` and the whole stage — gets one line and
 one JSON row.  Every piece runs eagerly, the
 whole stage too (``affine_plane.eager_stage_fn``): on a card
@@ -125,9 +127,8 @@ def pieces(spec: ap.PlaneSpec, device: torch.device):
         return blockreduce_ops.reduce_blocks(pred, orig_pl, t.border_packed,
                                              refine, t.repl)
 
-    _, moms_b = reduce(True)
-    moments = [moms_b[:, bi].to(torch.int64) for bi in range(t.n_bins)]
-    M, rhs = ap._assemble_equations(spec, t, moments)
+    satd_b, moms_b = reduce(True)
+    _, M, rhs = ap._fold_cu(spec, t, satd_b, moms_b, True)
     stage = ap.eager_stage_fn(spec, device)
     return [
         ("prep_inputs", lambda: ap.prep_inputs(spec, t, ref, orig)),
@@ -135,8 +136,9 @@ def pieces(spec: ap.PlaneSpec, device: torch.device):
         ("K1 warp", warp),
         ("K2 refine", lambda: reduce(True)),
         ("K2 satd only", lambda: reduce(False)),
-        ("assemble_equations",
-         lambda: ap._assemble_equations(spec, t, moments)),
+        ("fold_cu", lambda: ap._fold_cu(spec, t, satd_b, moms_b, True)),
+        ("fold_cu_plain",
+         lambda: ap._fold_cu_plain(spec, t, satd_b, moms_b, True)),
         ("solver", lambda: solver_ops.solve_affine(M, rhs, spec.n_cp)),
         ("refine_cpmvs", lambda: ap.refine_cpmvs(spec, t, cp, M, rhs)),
         ("evaluate", lambda: ap._evaluate(spec, t, ref, orig_pl, cp, True)),
